@@ -1,0 +1,138 @@
+"""CPU parity of the PyTorch port's ops (``ray_tpu_torch.ops``) with the JAX
+package: RoPE, RMSNorm (plain version of kernel K4, against the jnp form
+and the Pallas kernel in interpret mode) and flash attention (plain version
+of kernel K1, out AND lse, against the Pallas forward kernel in interpret
+mode and against ``mha_reference``).
+
+Inputs are drawn with numpy from a seed and handed to both packages in
+fp32; tolerances are fp32 summation-order noise.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import attention as jatt
+from ray_tpu.ops import norms as jnorms
+from ray_tpu.ops import rotary as jrot
+from ray_tpu_torch.ops import attention as tatt
+from ray_tpu_torch.ops import norms as tnorms
+from ray_tpu_torch.ops import rotary as trot
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("offset", [0, 5, "tensor"])
+def test_rotary_matches_jax(offset):
+    x = _rng(1).standard_normal((2, 3, 10, 16)).astype(np.float32)
+    jc, js = jrot.rope_frequencies(16, 64, theta=500000.0)
+    tc, ts = trot.rope_frequencies(16, 64, theta=500000.0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    if offset == "tensor":
+        j_off, t_off = jnp.asarray(7), torch.tensor(7)
+    else:
+        j_off, t_off = offset, offset
+    want = jrot.apply_rotary(jnp.asarray(x), jc, js, position_offset=j_off)
+    got = trot.apply_rotary(torch.from_numpy(x), tc, ts, position_offset=t_off)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [48, 50])  # 50: Pallas falls back to jnp
+def test_rms_norm_matches_jax_and_pallas(rows):
+    x = _rng(2).standard_normal((rows, 64)).astype(np.float32)
+    w = (1 + 0.1 * _rng(3).standard_normal(64)).astype(np.float32)
+    got = tnorms.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
+    want = jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5)
+    pallas = jnorms.rms_norm_pallas(jnp.asarray(x), jnp.asarray(w), 1e-5,
+                                    block_rows=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=1e-6)
+    # The kernel wrapper takes the plain version for a CPU tensor.
+    assert tnorms.rms_norm_cuda(torch.from_numpy(x), torch.from_numpy(w),
+                                1e-5).equal(got)
+
+
+def test_rms_norm_differentiable_under_autograd():
+    x = torch.from_numpy(_rng(4).standard_normal((4, 32)).astype(np.float32))
+    x.requires_grad_(True)
+    w = torch.ones(32)
+    tnorms.rms_norm(x, w).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+# Sq 64 / Sk 64 with 16-wide tiles: 4 key tiles, so the causal diagonal cut
+# is live.  Offsets: < 0 (leading rows see no key: some tiles visit nothing,
+# some visit a tile where every score is masked), 0, mid, and >= Sk.
+_HEADS = [(2, 2, 32), (4, 2, 64), (4, 1, 32)]  # (H, Hkv, D): groups 1, 2, 4
+_FLASH_CASES = (
+    [(True, h, hkv, d, off) for h, hkv, d in _HEADS
+     for off in (-40, 0, 24, 80)]
+    + [(False, h, hkv, d, 0) for h, hkv, d in _HEADS]
+    + [(True, 4, 2, 32, 24), (False, 2, 2, 64, 0)])
+
+
+def _qkv(H, Hkv, D, Sq=64, Sk=64, seed=5):
+    r = _rng(seed)
+    q = r.standard_normal((2, H, Sq, D)).astype(np.float32)
+    k = r.standard_normal((2, Hkv, Sk, D)).astype(np.float32)
+    v = r.standard_normal((2, Hkv, Sk, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal,H,Hkv,D,q_offset", _FLASH_CASES)
+def test_flash_ref_matches_pallas_and_reference(causal, H, Hkv, D, q_offset):
+    q, k, v = _qkv(H, Hkv, D)
+    scale = D ** -0.5
+    bq = bk = 16
+    j_out, j_lse = jatt._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, causal,
+        q_offset, bq, bk, True)
+    t_out, t_lse = tatt.flash_attention_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        sm_scale=scale, q_offset=q_offset, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse)[..., 0],
+                               atol=2e-5, rtol=1e-6)
+    # Rows that see at least one key equal the one-shot reference.
+    ref_out = np.asarray(jatt.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        sm_scale=scale, q_offset=q_offset))
+    seen = (np.arange(q.shape[2]) + q_offset >= 0) if causal else \
+        np.ones(q.shape[2], bool)
+    np.testing.assert_allclose(t_out.numpy()[:, :, seen],
+                               ref_out[:, :, seen], atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, -8), (True, 0),
+                                             (True, 40), (False, 0)])
+def test_mha_reference_matches_jax(causal, q_offset):
+    q, k, v = _qkv(4, 2, 32, Sq=24, Sk=40, seed=6)
+    j_out, j_lse = jatt._mha_reference_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        sm_scale=None, q_offset=q_offset)
+    t_out, t_lse = tatt._mha_reference_lse(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        sm_scale=None, q_offset=q_offset)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), atol=2e-5,
+                               rtol=1e-6)
+
+
+def test_flash_attention_cpu_uses_kernel_tiles():
+    """On a CPU tensor the kernel wrapper returns the plain version with
+    the CUDA kernel's tile sizes, ragged lengths included."""
+    q, k, v = _qkv(4, 2, 32, Sq=70, Sk=150, seed=7)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    out, lse = tatt.flash_attention_fwd(*args, causal=True, q_offset=-70)
+    ref_out, ref_lse = tatt.flash_attention_ref(
+        *args, causal=True, q_offset=-70, block_q=tatt.KERNEL_BLOCK_Q,
+        block_k=tatt.KERNEL_BLOCK_K)
+    assert out.equal(ref_out) and lse.equal(ref_lse)
+    assert tatt.flash_attention(*args, causal=True, q_offset=-70).equal(out)
+    # Tile 0 visits no key tile: O = 0, lse ~ NEG_INF.
+    assert float(out[:, :, :64].abs().max()) == 0.0
+    assert float(lse[:, :, :64].max()) <= -1e29
