@@ -14,26 +14,41 @@ no result line):
 4. K1 (``csrc/flash_fwd.cu``) against ``flash_attention_ref`` (out and
    lse) over Llama-3-8B shapes, GQA groups, head dims, offsets, ragged
    lengths and both dtypes, timed beside the plain version and SDPA.
-5. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
+5. K2 and K3 (``csrc/flash_bwd.cu``) against ``flash_attention_bwd_ref``
+   (dQ, dK, dV) over K1's cases and 32/8 heads, timed at the training
+   shape beside the plain version and SDPA's backward.
+6. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
    from a seed) at B=1, S=2048, then a 2-layer full-width model against the
    same weights in fp32 on the CPU through the plain path.
-6. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
+7. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
    once, 4 admitted while those decode); checks counts, page balance and
    greedy agreement with ``generate``; then a warm 8-request window under
    the profiler: wall, prefill and device busy time of that one window.
+8. train: the serving model is freed; ``make_train_step(llama_loss)``
+   with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
+   from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
+   steps (step time, tokens/s, MFU under bench.py's convention, peak
+   memory; loss and grad norm finite, the loss falling), then one step
+   under the profiler (idle share, time by kernel kind); then a 2-layer
+   full-width model's loss and every gradient in bf16 against the same
+   weights in fp32 on the CPU through the plain path (B=1, S=256).
 
-Kernel launch counters are zeroed just before the forward and the serve
-paths run and read just after; both kernels must have launched on both.
-The second-to-last JSON line lists every kernel with its launches, error,
-times and bound; the last line is the device record.  ``--report PATH``
-also writes every phase's numbers to PATH as JSON.
+Kernel launch counters are zeroed just before the forward, the serve and
+the train paths run and read just after: K1 and K4 must have launched on
+the forward and serve paths, and the train path must launch K1 twice per
+layer and step (forward and remat recompute), K2 and K3 once and K4 never.
+The second-to-last JSON line lists every kernel with its launches per
+path, error, times and bound; the last line is the device record.
+``--report PATH`` also writes every phase's numbers to PATH as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -126,17 +141,44 @@ def within(torch, got, ref, atol: float, rtol: float):
 # ------------------------------------------------------------------ phases
 
 
+def ptxas_report(log: str):
+    """[(kernel, registers, spilled bytes stored + loaded)] for each entry
+    function in nvcc's ``-Xptxas -v`` output; a kernel template
+    ``name<T, N>`` reads as ``name<bf16|f32, N>``."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                          m.group(1))
+            name = (f"{t[1]}<{'f32' if t[2] == 'f' else 'bf16'}, {t[3]}>"
+                    if t else m.group(1))
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m[1]), spill))
+            name = None
+    return out
+
+
 def phase_build(report):
     from ray_tpu_torch import _build
 
     t0 = time.perf_counter()
     _build.build()
     report["build_s"] = time.perf_counter() - t0
+    report["ptxas"] = {}
     for name, log in _build.build_logs.items():
-        lines = [l.strip() for l in log.splitlines()
-                 if "registers" in l or "spill" in l.lower()
-                 or "smem" in l]
-        print(f"[build] {name}.cu ptxas: " + " | ".join(lines[:8]))
+        kernels = ptxas_report(log)
+        report["ptxas"][name] = kernels
+        print(f"[build] {name}.cu ptxas: " + "; ".join(
+            f"{k} {regs} registers, {spill} B spilled"
+            for k, regs, spill in kernels))
     print(f"[build] kernels built in {report['build_s']:.1f} s")
 
 
@@ -299,21 +341,190 @@ def phase_flash(torch, report):
                            "timed": timed, "main": timed[-1]}
 
 
-def _reset_counts():
+def _bwd_case(torch, att, g, c):
+    """Inputs of one backward case: q, k, v, dO in the case's dtype, the
+    plain forward's lse and delta = rowsum(dO * O)."""
+    q, k, v = _attn_inputs(torch, g, c["B"], c["H"], c["Hkv"], c["Sq"],
+                           c["Sk"], c["D"], c["dt"])
+    do = torch.randn(q.shape, generator=g, device="cuda").to(c["dt"])
+    out, lse = att.flash_attention_ref(q, k, v, causal=c["causal"],
+                                       q_offset=c["off"])
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def phase_flash_bwd(torch, report):
+    """K2 and K3 against ``flash_attention_bwd_ref`` over K1's case grid
+    (and 32/8 heads), then timed at the training shape."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    # Per element, |got - ref| <= a * spread + atol + rtol * |ref|.  bf16:
+    # the kernels round p (for dV) and ds (for dQ, dK) to bf16 (unit
+    # roundoff U = 2^-8) before their products, which moves an element by
+    # at most U times the same product over absolute values (spread: |ds|
+    # . |k| for dQ, |ds|^T . |q| for dK, p^T . |dO| for dV, summed over the
+    # GQA group, fp32), and both sides round the output to bf16 (at most
+    # 2U |ref| apart).  fp32: exact products, sums in another order than
+    # the reference.  "fro" bounds ||got - ref|| / ||ref|| per gradient.
+    U = 2.0 ** -8
+    tol = {torch.bfloat16: {"elem": (U, 1e-5, 2 * U), "fro": 2 * U},
+           torch.float32: {"elem": (0.0, 1e-4, 1e-4), "fro": 1e-5}}
+    cases = [dict(B=1, H=32, Hkv=8, Sq=s, Sk=s, D=128, causal=True, off=0,
+                  dt=torch.bfloat16) for s in (512, 2048)]
+    for dt in (torch.bfloat16, torch.float32):
+        for H, Hkv in ((4, 4), (8, 2), (32, 8)):
+            for D in (64, 128):
+                for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
+                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
+                                      causal=False, off=0, dt=dt))
+                    for off in (-64, 0, 256, Sk + 64):
+                        cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                                          D=D, causal=True, off=off, dt=dt))
+    worst = {}
+    for c in cases:
+        q, k, v, do, lse, delta = _bwd_case(torch, att, g, c)
+        kw = dict(causal=c["causal"], q_offset=c["off"])
+        dq = att.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
+        dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+        refs = att.flash_attention_bwd_ref(q, k, v, lse, delta, do, **kw)
+        t = tol[c["dt"]]
+        a, atol, rtol = t["elem"]
+        if a:
+            p, ds = att._bwd_probs(q, k, v, lse, delta, do, sm_scale=None,
+                                   **kw)
+            ads, Hkv = ds.abs(), c["Hkv"]
+            spreads = (
+                torch.einsum("bhqk,bhkd->bhqd", ads,
+                             att._repeat_kv(k, c["H"]).float().abs()),
+                att._sum_groups(torch.einsum(
+                    "bhqk,bhqd->bhkd", ads, q.float().abs()), Hkv),
+                att._sum_groups(torch.einsum(
+                    "bhqk,bhqd->bhkd", p, do.float().abs()), Hkv))
+            del p, ds, ads
+        else:
+            spreads = (0.0, 0.0, 0.0)
+        tag = (f"B{c['B']} H{c['H']}/{c['Hkv']} Sq{c['Sq']} Sk{c['Sk']} "
+               f"D{c['D']} causal={c['causal']} off={c['off']} {c['dt']}")
+        w = worst.setdefault(str(c["dt"]), {})
+        for name, got, ref, spread in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                          refs, spreads):
+            err, ok = within(torch, got, ref, a * spread + atol, rtol)
+            d_norm = float((got.float() - ref.float()).norm())
+            r_norm = float(ref.float().norm())
+            fro = d_norm / r_norm if r_norm > 0 else d_norm
+            check(ok and fro <= t["fro"],
+                  f"K2/K3 {name} {tag}: max err {err} (tol {t['elem']}), "
+                  f"relative norm err {fro} (tol {t['fro']})")
+            e = w.setdefault(name, {"err": 0.0, "fro": 0.0})
+            e["err"], e["fro"] = max(e["err"], err), max(e["fro"], fro)
+    tol_s = json.dumps({str(k): v for k, v in tol.items()})
+    print(f"[K2/K3] {len(cases)} cases within tolerance; worst element err "
+          f"and relative norm err by dtype {json.dumps(worst)}; tolerances "
+          f"{tol_s}")
+
+    # The training shape: B=1, H=32, Hkv=8, S=2048, D=128, causal, bf16.
+    B, H, Hkv, S, D = 1, 32, 8, 2048, 128
+    c = dict(B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=D, causal=True, off=0,
+             dt=torch.bfloat16)
+    q, k, v, do, lse, delta = _bwd_case(torch, att, g, c)
+    ref = att.flash_attention_bwd_ref(q, k, v, lse, delta, do)
+    dq = att.flash_attention_bwd_dq(q, k, v, lse, delta, do)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+    errs = [float((x.float() - r.float()).abs().max())
+            for x, r in zip((dq, dk, dv), ref)]
+    # Library yardstick for the pair: the device time of SDPA's backward,
+    # i.e. one forward and backward less the forward alone.
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_route = "enable_gqa"
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                              enable_gqa=kr.shape[1] != H)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), do)
+
+    try:
+        sdpa_fwd_bwd()
+    except RuntimeError as e:
+        print(f"[K2/K3] SDPA backward refused GQA ({e}); K/V repeated to "
+              f"{H} heads")
+        lib_route = "K/V repeated to H heads"
+        kr, vr = (att._repeat_kv(t, H).detach().requires_grad_(True)
+                  for t in (k, v))
+    library_ms = device_ms(torch, sdpa_fwd_bwd) - device_ms(torch, sdpa_fwd)
+    library_call_ms = time_ms(torch, sdpa_fwd_bwd)
+    plain = lambda: att.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, lse, delta, do)
+    plain_ms = device_ms(torch, plain, iters=3)
+    plain_call_ms = time_ms(torch, plain, iters=5)
+    pairs = S * (S + 1) // 2  # causal (q, key) pairs per head
+    lse_bytes = 2 * B * H * S * 4  # lse and delta
+    work = {
+        "flash_bwd_dq": (6 * B * H * D * pairs,
+                         (3 * B * H * S * D + 2 * B * Hkv * S * D) * 2
+                         + lse_bytes,
+                         lambda: att.flash_attention_bwd_dq(
+                             q, k, v, lse, delta, do), errs[0]),
+        "flash_bwd_dkv": (8 * B * H * D * pairs,
+                          (2 * B * H * S * D + 4 * B * Hkv * S * D) * 2
+                          + lse_bytes,
+                          lambda: att.flash_attention_bwd_dkv(
+                              q, k, v, lse, delta, do), max(errs[1:])),
+    }
+    main = {}
+    for name, (flops, nbytes, kern, err) in work.items():
+        rec = {
+            "shape": dict(B=B, H=H, Hkv=Hkv, S=S, D=D, causal=True,
+                          dtype="bfloat16"),
+            "max_abs_err": err,
+            "call_ms": time_ms(torch, kern),
+            "ms": device_ms(torch, kern),
+            # The plain version and the library call compute K2 and K3
+            # together: their times are the pair's.
+            "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+            "library_ms": library_ms, "library_call_ms": library_call_ms,
+            "library_route": lib_route,
+            "bound_ms": max(flops / PEAK_BF16_FLOPS,
+                            nbytes / PEAK_HBM_BYTES) * 1e3,
+            "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
+                         >= nbytes / PEAK_HBM_BYTES else "bytes"),
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        }
+        main[name] = rec
+        print(f"[{name}] " + json.dumps(rec))
+    report["flash_bwd"] = {"cases": len(cases), "worst": worst,
+                           "main": main}
+
+
+def _counters():
+    """{kernel name: its wrapper, which carries the launch count}."""
     from ray_tpu_torch.ops import attention, norms
 
-    attention.flash_attention_fwd.launches = 0
-    norms.rms_norm_cuda.launches = 0
+    return {"flash_fwd": attention.flash_attention_fwd,
+            "flash_bwd_dq": attention.flash_attention_bwd_dq,
+            "flash_bwd_dkv": attention.flash_attention_bwd_dkv,
+            "rms_norm": norms.rms_norm_cuda}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def _read_counts():
-    from ray_tpu_torch.ops import attention, norms
-
-    return {"flash_fwd": attention.flash_attention_fwd.launches,
-            "rms_norm": norms.rms_norm_cuda.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def phase_forward(torch, report, seed: int):
+    with torch.no_grad():  # serving: no autograd, K4 on every norm
+        return _forward(torch, report, seed)
+
+
+def _forward(torch, report, seed: int):
     from ray_tpu_torch.models.llama import (Llama, LlamaConfig, llama_apply,
                                             llama_init)
 
@@ -540,6 +751,151 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
                                "top_kernels_ms": dict(top)}
 
 
+# Kernel-name patterns of a train step's device time, by kind.
+_STEP_KINDS = (
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("AdamW (fused)", ("multi_tensor_apply", "fused_adam")),
+)
+
+
+def phase_train(torch, report, seed: int, steps: int = 5):
+    """AdamW train steps on full Llama-3-8B (B=1, S=2048), as bench.py
+    drives the JAX package: 2 warm steps, then ``steps`` timed ones."""
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init, llama_loss
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer,
+                                                  make_train_step)
+
+    cfg = LlamaConfig.llama3_8b()
+    B, S = 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    params = llama_init(cfg, gen, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    tx = default_optimizer(lr=1e-4)
+    state = TrainState.create(params, tx)
+    step = make_train_step(
+        lambda p, b: llama_loss(cfg, p, b["tokens"], b["targets"]), tx)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    metrics = []
+    for _ in range(2):  # warm: optimizer state, cuBLAS heuristics
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernels, prof_wall_ms = profile_window(torch, lambda: step(state, batch),
+                                           iters=1)
+    busy_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    by_kind = {}
+    for name, ms in kernels.items():
+        kind = next((k for k, pats in _STEP_KINDS if any(
+            pat in name for pat in pats)), "other (elementwise, reductions, "
+                                           "copies)")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    L = cfg.n_layers
+    tokens_per_s = B * S / step_s
+    # bench.py's convention: 6N + 6 L S d model flops per token, remat
+    # excluded, against the H100's dense bf16 peak.
+    flops_per_token = 6 * n_params + 6 * L * S * cfg.d_model
+    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+    print(f"[train] Llama-3-8B {n_params / 1e9:.2f}B params ({L} layers, "
+          f"bf16, remat full) B={B} S={S}: step {step_s * 1e3:.1f} ms, "
+          f"{tokens_per_s:.1f} tokens/s, MFU {mfu:.4f}; peak memory "
+          f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(x, 4) for x in norms]}; launches {counts}")
+    print(f"[train] profiled step: device busy {busy_ms:.1f} ms of "
+          f"{prof_wall_ms:.1f} ms wall (idle share "
+          f"{1 - busy_ms / prof_wall_ms:.3f}); by kind (ms): "
+          + "; ".join(f"{k} {t:.1f}" for k, t in sorted(
+              by_kind.items(), key=lambda kv: -kv[1]))
+          + "; top kernels (ms): "
+          + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "rms_norm": 0}
+    check(counts == want, f"train launches {counts}, expected {want} "
+                          f"(K1 forward + remat recompute, K2/K3 once per "
+                          f"layer, K4 none under autograd)")
+    report["train"] = {
+        "params_b": n_params / 1e9, "layers": L, "batch": B, "seq": S,
+        "steps": steps, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens_per_s, "mfu": mfu, "peak_gb": peak_gb,
+        "losses": losses, "grad_norms": norms, "launches": counts,
+        "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / prof_wall_ms,
+        "by_kind_ms": by_kind, "top_kernels_ms": dict(top)}
+    return cfg, tokens
+
+
+def phase_train_check(torch, report, cfg, tokens, seed: int):
+    """Two layers at full width: loss and every gradient in bf16 on the
+    card against the same weights in fp32 on the CPU through the plain
+    path (the kernels' plain versions), B=1, S=256."""
+    from ray_tpu_torch.models.llama import Llama, llama_init, llama_loss
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = llama_init(cfg2, torch.Generator(device="cuda")
+                        .manual_seed(seed + 3), trainable=True)
+    tok = tokens[:, :256]
+    tgt = torch.roll(tok, -1, dims=1)
+    loss = llama_loss(cfg2, params, tok, tgt)
+    loss.backward()
+    loss = float(loss.detach())
+    got = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
+    cpu = Llama(dataclasses.replace(cfg2, dtype=torch.float32, remat=False),
+                torch.device("cpu"))
+    cpu.load_state_dict(params.state_dict())
+    del params
+    cpu.requires_grad_(True)
+    t0 = time.perf_counter()
+    ref = llama_loss(cpu.config, cpu, tok.cpu(), tgt.cpu())
+    ref.backward()
+    ref = float(ref.detach())
+    cpu_s = time.perf_counter() - t0
+    rel = {n: float((got[n] - p.grad).norm() / p.grad.norm())
+           for n, p in cpu.named_parameters()}
+    loss_rel = abs(loss - ref) / abs(ref)
+    # bf16 against fp32: every activation, weight and gradient is rounded
+    # to bf16 (unit roundoff 2^-8 = 0.4 %) at each of the ~20 ops of a
+    # layer's forward and backward, and the weight gradients are summed
+    # over 256 tokens; the relative norm error of each gradient is expected
+    # at 1-2 %, and 5 % is the bound.  The loss is one fp32 reduction of
+    # bf16 logits: 1 %.
+    grad_tol, loss_tol = 5e-2, 1e-2
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[train-check] 2-layer full-width S=256 vs fp32 CPU plain path "
+          f"({cpu_s:.1f} s): loss {loss:.5f} vs {ref:.5f} "
+          f"(rel {loss_rel:.3g}, tol {loss_tol}); gradient rel norm err over "
+          f"{len(rel)} tensors, worst: "
+          + ", ".join(f"{n} {e:.4g}" for n, e in worst)
+          + f" (tol {grad_tol})")
+    check(loss_rel <= loss_tol and max(rel.values()) <= grad_tol,
+          f"train path disagrees with the fp32 CPU reference: loss rel "
+          f"{loss_rel}, gradient rel {dict(worst)}")
+    report["train_check"] = {"loss": loss, "ref_loss": ref,
+                             "loss_rel": loss_rel, "grad_rel": rel,
+                             "grad_tol": grad_tol, "loss_tol": loss_tol}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -568,25 +924,37 @@ def main(argv=None) -> int:
     phase_build(report)
     phase_rms(torch, report)
     phase_flash(torch, report)
+    phase_flash_bwd(torch, report)
     cfg, params = phase_forward(torch, report, args.seed)
     phase_serve(torch, report, cfg, params, args.seed)
     phase_serve_profile(torch, report, cfg, params, args.seed)
+    del params  # the serving model makes room for training
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, tokens = phase_train(torch, report, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_check(torch, report, cfg, tokens, args.seed)
     report["total_s"] = time.perf_counter() - t_all
 
-    fwd = report["forward"]["launches"]
-    srv = report["serve"]["launches"]
+    paths = {path: report[path]["launches"]
+             for path in ("forward", "serve", "train")}
+    bwd = report["flash_bwd"]["main"]
     kernels = []
     for name, src, replaces, main in (
             ("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
              "ray_tpu/ops/attention.py:84", report["flash_fwd"]["main"]),
+            ("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu",
+             "ray_tpu/ops/attention.py:174", bwd["flash_bwd_dq"]),
+            ("flash_bwd_dkv", "ray_tpu_torch/csrc/flash_bwd.cu",
+             "ray_tpu/ops/attention.py:214", bwd["flash_bwd_dkv"]),
             ("rms_norm", "ray_tpu_torch/csrc/rms_norm.cu",
              "ray_tpu/ops/norms.py:20", report["rms_norm"]["main"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": fwd[name] + srv[name],
-            "launches_forward": fwd[name],
-            "launches_serve": srv[name],
+            "launches": sum(c[name] for c in paths.values()),
+            **{f"launches_{path}": c[name] for path, c in paths.items()},
             "max_abs_err": main["max_abs_err"],
             # Device time from the profiler.
             "ms": main["ms"], "plain_ms": main["plain_ms"],

@@ -1,14 +1,19 @@
-"""Llama-family decoder-only transformer, forward pass (port of
-``ray_tpu/models/llama.py``).
+"""Llama-family decoder-only transformer (port of
+``ray_tpu/models/llama.py``): forward, loss and LoRA.
 
 ``Llama`` is an ``nn.Module`` holding the weights in the JAX package's
-``[d_in, d_out]`` layout (``x @ w``), so ``params_from_jax`` copies arrays
-without transposing and the two packages compare like with like.
-``llama_hidden`` / ``llama_apply`` are forward only: no remat, no ring
-attention, no loss (the training slice of the port).  Attention goes through
-``flash_attention`` (kernel K1 on the card) and every norm through
-``rms_norm`` (kernel K4 on the card); the projections and the MLP stay plain
-``torch.matmul``, as the JAX package left them to XLA.
+``[d_in, d_out]`` layout (``x @ w``) under the JAX tree's names
+(``layers.0.attn.wq`` is ``params["layers"][0]["attn"]["wq"]``), so
+``params_from_jax`` copies arrays without transposing and the two packages
+compare like with like.  Parameters are frozen unless built with
+``trainable=True``; serving callers run under ``torch.no_grad()``.
+``llama_hidden`` is differentiable: with ``config.remat`` each block is
+checkpointed (``remat_policy="full"``), so its forward, kernel K1 included,
+runs again in the backward.  Attention goes through ``flash_attention``
+(kernels K1 and, for gradients, K2/K3 on the card) and every norm through
+``rms_norm`` (kernel K4 on the card when no gradient is needed); the
+projections and the MLP stay plain ``torch.matmul``, as the JAX package
+left them to XLA.  Ring attention (``sp_ring``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
+from ..ops.losses import masked_nll
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
 
@@ -29,11 +36,10 @@ from ..ops.rotary import apply_rotary, rope_frequencies
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Same fields and stock sizes as the JAX ``LlamaConfig``, with a torch
-    dtype.  ``remat``, ``remat_policy``, ``flash_block_q/k`` and
-    ``loss_chunk`` are training / TPU-tiling knobs the forward-only port
-    does not read (the CUDA kernel's tiles are fixed, see
-    ``ops/attention.py``); ``sp_ring=True`` raises until ring attention is
-    ported."""
+    dtype.  ``flash_block_q/k`` are TPU tiling knobs the port does not read
+    (the CUDA kernels' tiles are fixed, see ``ops/attention.py``);
+    ``remat_policy`` other than ``"full"`` and ``sp_ring=True`` raise until
+    they are ported (ROADMAP.md)."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -131,8 +137,8 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    """Weights of one Llama model (frozen: serving only needs the forward
-    pass).  ``forward(tokens)`` is ``llama_apply``."""
+    """Weights of one Llama model.  ``forward(tokens)`` is
+    ``llama_apply``."""
 
     def __init__(self, config: LlamaConfig, device: torch.device):
         super().__init__()
@@ -152,37 +158,46 @@ class Llama(nn.Module):
         return llama_apply(self.config, self, tokens)
 
 
+def _normal_(p: nn.Parameter, scale: float, generator: torch.Generator
+             ) -> None:
+    p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=p.device) * scale)
+
+
+def _generator(generator: Optional[torch.Generator], dev: torch.device
+               ) -> torch.Generator:
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return generator
+
+
 @torch.no_grad()
 def llama_init(config: LlamaConfig,
                generator: Optional[torch.Generator] = None,
-               device: DeviceLike = None) -> Llama:
+               device: DeviceLike = None, *, trainable: bool = False
+               ) -> Llama:
     """Random weights with the JAX package's distributions: N(0, 1) embed,
     N(0, d^-1/2) projections, N(0, d_ff^-1/2) down projection, ones for the
     norms; drawn in fp32 from ``generator`` (seed 0 when omitted, on the
     target device) and cast to ``config.dtype``.  The numbers differ from
     ``jax.random``'s for the same seed: tests hand both packages one set of
-    numpy weights through ``params_from_jax``."""
+    numpy weights through ``params_from_jax``.  ``trainable`` makes every
+    parameter require grad."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    generator = _generator(generator, dev)
     model = Llama(config, dev)
     std = config.d_model ** -0.5
-
-    def dense(p: nn.Parameter, scale: float) -> None:
-        p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                            device=dev) * scale)
-
-    dense(model.embed, 1.0)
+    _normal_(model.embed, 1.0, generator)
     model.final_norm.fill_(1.0)
-    dense(model.lm_head, std)
+    _normal_(model.lm_head, std, generator)
     for layer in model.layers:
         layer.attn_norm.fill_(1.0)
         layer.mlp_norm.fill_(1.0)
         for w in (layer.attn.wq, layer.attn.wk, layer.attn.wv, layer.attn.wo,
                   layer.mlp.w1, layer.mlp.w3):
-            dense(w, std)
-        dense(layer.mlp.w2, config.d_ff ** -0.5)
-    return model
+            _normal_(w, std, generator)
+        _normal_(layer.mlp.w2, config.d_ff ** -0.5, generator)
+    return model.requires_grad_(trainable)
 
 
 def _to_tensor(a: Any, dtype: torch.dtype, device: torch.device
@@ -195,45 +210,52 @@ def _to_tensor(a: Any, dtype: torch.dtype, device: torch.device
     return t.to(device=device, dtype=dtype)
 
 
-@torch.no_grad()
-def params_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
-                    device: DeviceLike = None) -> Llama:
-    """Build the port's model from ``jax.tree.map(np.asarray, params)`` of
-    the JAX package's ``llama_init`` (numpy arrays only)."""
-    dev = resolve_device(device)
-    model = Llama(config, dev)
-
-    def put(p: nn.Parameter, a: Any) -> None:
-        t = _to_tensor(a, config.dtype, dev)
+def _load_tree(model: nn.Module, np_tree: Mapping[str, Any],
+               dtype: torch.dtype) -> None:
+    """Copy every parameter from the numpy tree at its own name's path
+    (``layers.0.attn.wq`` -> ``np_tree["layers"][0]["attn"]["wq"]``)."""
+    for name, p in model.named_parameters():
+        node = np_tree
+        for key in name.split("."):
+            node = node[int(key)] if key.isdigit() else node[key]
+        t = _to_tensor(node, dtype, p.device)
         if t.shape != p.shape:
-            raise ValueError(f"weight shape {tuple(t.shape)} != "
+            raise ValueError(f"{name}: weight shape {tuple(t.shape)} != "
                              f"{tuple(p.shape)}")
         p.copy_(t)
 
-    put(model.embed, np_tree["embed"])
-    put(model.final_norm, np_tree["final_norm"])
-    put(model.lm_head, np_tree["lm_head"])
+
+@torch.no_grad()
+def params_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
+                    device: DeviceLike = None, *, trainable: bool = False
+                    ) -> Llama:
+    """Build the port's model from ``jax.tree.map(np.asarray, params)`` of
+    the JAX package's ``llama_init`` (numpy arrays only)."""
     if len(np_tree["layers"]) != config.n_layers:
         raise ValueError(f"{len(np_tree['layers'])} layers for a "
                          f"{config.n_layers}-layer config")
-    for layer, src in zip(model.layers, np_tree["layers"]):
-        put(layer.attn_norm, src["attn_norm"])
-        put(layer.mlp_norm, src["mlp_norm"])
-        for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(layer.attn, name), src["attn"][name])
-        for name in ("w1", "w3", "w2"):
-            put(getattr(layer.mlp, name), src["mlp"][name])
-    return model
+    model = Llama(config, resolve_device(device))
+    _load_tree(model, np_tree, config.dtype)
+    return model.requires_grad_(trainable)
 
 
 def _attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
-               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+               cos: torch.Tensor, sin: torch.Tensor,
+               lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
     B, S, d = x.shape
     hd = config.head_dim
     a = layer.attn
-    q = (x @ a.wq).view(B, S, config.n_heads, hd).transpose(1, 2)
-    k = (x @ a.wk).view(B, S, config.n_kv_heads, hd).transpose(1, 2)
-    v = (x @ a.wv).view(B, S, config.n_kv_heads, hd).transpose(1, 2)
+    q = x @ a.wq
+    k = x @ a.wk
+    v = x @ a.wv
+    if lora_layer is not None:
+        # LoRA on wq/wv (standard recipe): delta = x @ A @ B * (alpha/r).
+        scale = lora_layer.scale
+        q = q + ((x @ lora_layer.wq_lora_a) @ lora_layer.wq_lora_b) * scale
+        v = v + ((x @ lora_layer.wv_lora_a) @ lora_layer.wv_lora_b) * scale
+    q = q.view(B, S, config.n_heads, hd).transpose(1, 2)
+    k = k.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
+    v = v.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     out = flash_attention(q, k, v, causal=True)
@@ -246,32 +268,147 @@ def _mlp(layer: Block, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(config: LlamaConfig, x: torch.Tensor, layer: Block,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+           cos: torch.Tensor, sin: torch.Tensor,
+           lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
     h = rms_norm(x, layer.attn_norm, config.norm_eps)
-    x = x + _attention(config, h, layer, cos, sin)
+    x = x + _attention(config, h, layer, cos, sin, lora_layer)
     h = rms_norm(x, layer.mlp_norm, config.norm_eps)
     return x + _mlp(layer, h)
 
 
-@torch.no_grad()
-def llama_hidden(config: LlamaConfig, params: Llama,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Final-norm hidden states [B, S, d] (logits = hidden @ lm_head)."""
+def llama_hidden(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
+                 lora_params: Optional["Lora"] = None) -> torch.Tensor:
+    """Final-norm hidden states [B, S, d] (logits = hidden @ lm_head).
+    Under autograd with ``config.remat`` each block is checkpointed: its
+    activations are recomputed in the backward instead of kept."""
     if config.sp_ring:
         raise NotImplementedError(
             "ring attention is not ported yet; see ROADMAP.md, PyTorch/CUDA "
             "port")
+    remat = config.remat and torch.is_grad_enabled()
+    if remat and config.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r} is not ported yet (only "
+            f"'full'); see ROADMAP.md, PyTorch/CUDA port: training")
     x = params.embed[tokens].to(config.dtype)
     cos, sin = rope_frequencies(config.head_dim, config.max_seq,
                                 config.rope_theta, device=x.device)
-    for layer in params.layers:
-        x = _block(config, x, layer, cos, sin)
+    for i, layer in enumerate(params.layers):
+        ll = lora_params.layers[i] if lora_params is not None else None
+        if remat:
+            x = checkpoint(_block, config, x, layer, cos, sin, ll,
+                           use_reentrant=False)
+        else:
+            x = _block(config, x, layer, cos, sin, ll)
     return rms_norm(x, params.final_norm, config.norm_eps)
 
 
-@torch.no_grad()
-def llama_apply(config: LlamaConfig, params: Llama,
-                tokens: torch.Tensor) -> torch.Tensor:
+def llama_apply(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
+                lora_params: Optional["Lora"] = None) -> torch.Tensor:
     """Returns fp32 logits [B, S, vocab] for int tokens [B, S]."""
-    x = llama_hidden(config, params, tokens)
+    x = llama_hidden(config, params, tokens, lora_params)
     return (x @ params.lm_head).float()
+
+
+def llama_loss(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
+               targets: torch.Tensor, lora_params: Optional["Lora"] = None,
+               ignore_index: int = -100) -> torch.Tensor:
+    """Causal-LM cross entropy (fp32 scalar) with a sequence-chunked vocab
+    projection: the full fp32 logits ([B, S, vocab], 1 GB at B=1, S=2048,
+    vocab 128256, plus its gradient) never materialise.  Each
+    ``config.loss_chunk`` slice of the sequence is checkpointed, so its
+    logits are recomputed in the backward; when the chunk does not divide
+    S the loss takes one unchunked pass."""
+    hidden = llama_hidden(config, params, tokens, lora_params)
+    S = hidden.shape[1]
+    w = params.lm_head
+
+    def chunk_nll(h_c, tgt_c):
+        return masked_nll((h_c @ w).float(), tgt_c, ignore_index)
+
+    chunk = config.loss_chunk
+    if S % chunk:
+        total, count = chunk_nll(hidden, targets)
+        return total / count.clamp_min(1)
+    total, count = 0.0, 0
+    for c in range(0, S, chunk):
+        nll, cnt = checkpoint(chunk_nll, hidden[:, c:c + chunk],
+                              targets[:, c:c + chunk], use_reentrant=False)
+        total, count = total + nll, count + cnt
+    return total / count.clamp_min(1)
+
+
+# --------------------------------------------------------------------- LoRA
+
+
+class LoraLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, rank: int, device):
+        super().__init__()
+        d, kv_out, dt = (config.d_model, config.n_kv_heads * config.head_dim,
+                         config.dtype)
+        self.wq_lora_a = _param((d, rank), dt, device)
+        self.wq_lora_b = _param((rank, d), dt, device)
+        self.wv_lora_a = _param((d, rank), dt, device)
+        self.wv_lora_b = _param((rank, kv_out), dt, device)
+        self.scale = _param((), dt, device)  # alpha / rank; a leaf, trained
+
+
+class Lora(nn.Module):
+    """Adapters for wq/wv in every layer, under the JAX tree's names
+    (``layers.0.wq_lora_a``).  They are the trained part of a LoRA
+    fine-tune: every parameter requires grad, ``scale`` included (a leaf
+    of the JAX tree, so optax updates it too)."""
+
+    def __init__(self, config: LlamaConfig, rank: int, device):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            LoraLayer(config, rank, device) for _ in range(config.n_layers))
+
+
+@torch.no_grad()
+def lora_init(config: LlamaConfig,
+              generator: Optional[torch.Generator] = None, rank: int = 16,
+              alpha: float = 32.0, device: DeviceLike = None) -> Lora:
+    """Adapters for frozen-base fine-tuning: A ~ N(0, d^-1/2), B = 0 (the
+    adapted model starts equal to the base), scale = alpha / rank."""
+    dev = resolve_device(device)
+    generator = _generator(generator, dev)
+    lora = Lora(config, rank, dev)
+    for ll in lora.layers:
+        _normal_(ll.wq_lora_a, config.d_model ** -0.5, generator)
+        ll.wq_lora_b.zero_()
+        _normal_(ll.wv_lora_a, config.d_model ** -0.5, generator)
+        ll.wv_lora_b.zero_()
+        ll.scale.fill_(alpha / rank)
+    return lora.requires_grad_(True)
+
+
+@torch.no_grad()
+def lora_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
+                  device: DeviceLike = None) -> Lora:
+    """The port's adapters from ``jax.tree.map(np.asarray, lora)`` of the
+    JAX package's ``lora_init``."""
+    if len(np_tree["layers"]) != config.n_layers:
+        raise ValueError(f"{len(np_tree['layers'])} adapter layers for a "
+                         f"{config.n_layers}-layer config")
+    rank = np.asarray(np_tree["layers"][0]["wq_lora_a"]).shape[1]
+    lora = Lora(config, rank, resolve_device(device))
+    _load_tree(lora, np_tree, config.dtype)
+    return lora.requires_grad_(True)
+
+
+@torch.no_grad()
+def lora_merge(config: LlamaConfig, params: Llama, lora: Lora) -> Llama:
+    """Fold adapters into base weights (for export/serving): a new frozen
+    model that shares every tensor of ``params`` but wq and wv."""
+    merged = Llama(config, torch.device("meta"))
+    merged.load_state_dict(params.state_dict(), assign=True)
+    for layer, ll in zip(merged.layers, lora.layers):
+        a = layer.attn
+        scale = ll.scale.float()
+        for name, la, lb in (("wq", ll.wq_lora_a, ll.wq_lora_b),
+                             ("wv", ll.wv_lora_a, ll.wv_lora_b)):
+            w = getattr(a, name).float() + la.float() @ lb.float() * scale
+            setattr(a, name, nn.Parameter(w.to(config.dtype),
+                                          requires_grad=False))
+    return merged
