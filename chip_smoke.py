@@ -13,10 +13,13 @@ no result line):
    plain version and ``F.rms_norm``.
 4. K1 (``csrc/flash_fwd.cu``) against ``flash_attention_ref`` (out and
    lse) over Llama-3-8B shapes, GQA groups, head dims, offsets, ragged
-   lengths and both dtypes, timed beside the plain version and SDPA.
+   lengths, the bf16 kernel's block edges, transposed [B, S, H, D] views
+   and both dtypes, lse bit-equal on rows that see no key; timed beside
+   the plain version and SDPA.
 5. K2 and K3 (``csrc/flash_bwd.cu``) against ``flash_attention_bwd_ref``
-   (dQ, dK, dV) over K1's cases and 32/8 heads, timed at the training
-   shape beside the plain version and SDPA's backward.
+   (dQ, dK, dV) over K1's first cases and 32/8 heads, and fed by K1's own
+   (out, lse) at negative offsets; timed at the training shape beside the
+   plain version and SDPA's backward.
 6. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
    from a seed) at B=1, S=2048, then a 2-layer full-width model against the
    same weights in fp32 on the CPU through the plain path.
@@ -237,6 +240,51 @@ def _attn_inputs(torch, g, B, H, Hkv, Sq, Sk, D, dt):
     return q, k, v
 
 
+def _flash_cases(torch):
+    """K1's case grid: the main-path shapes; the first port's grid (both
+    dtypes, GQA groups, head dims, offsets, ragged lengths); the bf16
+    kernel's block edges (128-row blocks made of two 64-row visiting
+    tiles, 64-key tiles); and q/k/v as transposed [B, S, H, D] views, as
+    the model passes them."""
+    cases = [dict(B=1, H=32, Hkv=8, Sq=s, Sk=s, D=128, causal=True, off=0,
+                  dt=torch.bfloat16) for s in (512, 2048)]
+    for dt in (torch.bfloat16, torch.float32):
+        for H, Hkv in ((4, 4), (8, 2)):
+            for D in (64, 128):
+                for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
+                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
+                                      causal=False, off=0, dt=dt))
+                    for off in (-64, 0, 256, Sk + 64):
+                        cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                                          D=D, causal=True, off=off, dt=dt))
+    for H, Hkv in ((4, 4), (8, 2), (32, 8)):
+        for D in (64, 128):
+            for Sq in (1, 65, 127, 129, 200):
+                for Sk in (1, 64, 65, 129, 300):
+                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
+                                      causal=False, off=0,
+                                      dt=torch.bfloat16))
+                    for off in (-65, -64, -63, 0, 1, Sk + 64):
+                        cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
+                                          D=D, causal=True, off=off,
+                                          dt=torch.bfloat16))
+    for D in (64, 128):
+        for S, off in ((200, 0), (1000, 0), (1000, -63)):
+            cases.append(dict(B=2, H=32, Hkv=8, Sq=S, Sk=S, D=D, causal=True,
+                              off=off, dt=torch.bfloat16, bshd=True))
+    return cases
+
+
+def _case_inputs(torch, g, c):
+    if not c.get("bshd"):
+        return _attn_inputs(torch, g, c["B"], c["H"], c["Hkv"], c["Sq"],
+                            c["Sk"], c["D"], c["dt"])
+    q, k, v = _attn_inputs(torch, g, c["B"], c["Sq"], c["Sk"], c["H"],
+                           c["Hkv"], c["D"], c["dt"])
+    # [B, S, H, D] storage viewed as [B, H, S, D]: seq stride H * D.
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
 def phase_flash(torch, report):
     import torch.nn.functional as F
 
@@ -250,27 +298,20 @@ def phase_flash(torch, report):
     # both sides round the output to bf16 (at most 2U |ref| apart).  fp32:
     # exact products, sums in another order than the reference.  "fro"
     # bounds ||out - ref|| / ||ref|| over the whole output; "lse" is
-    # (atol, rtol).
+    # (atol, rtol).  On rows whose largest score is NEG_INF (every visited
+    # key masked) or that visit no key tile, lse must equal the plain
+    # version's bit for bit: K2/K3 take p = exp(s - lse) there, and one ulp
+    # at -1e30 (7.6e22) overflows p.
     U = 2.0 ** -8
     tol = {torch.bfloat16: {"out": (U, 1e-5, 2 * U), "fro": 2 * U,
                             "lse": (1e-3, 1e-5)},
            torch.float32: {"out": (0.0, 1e-4, 1e-4), "fro": 1e-5,
                            "lse": (1e-4, 1e-5)}}
-    cases = [dict(B=1, H=32, Hkv=8, Sq=s, Sk=s, D=128, causal=True, off=0,
-                  dt=torch.bfloat16) for s in (512, 2048)]
-    for dt in (torch.bfloat16, torch.float32):
-        for H, Hkv in ((4, 4), (8, 2)):
-            for D in (64, 128):
-                for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
-                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
-                                      causal=False, off=0, dt=dt))
-                    for off in (-64, 0, 256, Sk + 64):
-                        cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
-                                          D=D, causal=True, off=off, dt=dt))
+    cases = _flash_cases(torch)
     worst = {}
+    masked_rows = 0
     for c in cases:
-        q, k, v = _attn_inputs(torch, g, c["B"], c["H"], c["Hkv"], c["Sq"],
-                               c["Sk"], c["D"], c["dt"])
+        q, k, v = _case_inputs(torch, g, c)
         out, lse = att.flash_attention_fwd(q, k, v, causal=c["causal"],
                                            q_offset=c["off"])
         ref_out, ref_lse = att.flash_attention_ref(
@@ -284,20 +325,27 @@ def phase_flash(torch, report):
             atol = a * spread + atol
         e_out, ok_out = within(torch, out, ref_out, atol, rtol)
         e_lse, ok_lse = within(torch, lse, ref_lse, *t["lse"])
+        trap = ref_lse <= att.NEG_INF / 2
+        masked_rows += int(trap.sum())
+        lse_bits = bool(torch.equal(lse[trap], ref_lse[trap]))
         d_norm = float((out.float() - ref_out.float()).norm())
         r_norm = float(ref_out.float().norm())
         fro = d_norm / r_norm if r_norm > 0 else d_norm
         tag = (f"B{c['B']} H{c['H']}/{c['Hkv']} Sq{c['Sq']} Sk{c['Sk']} "
-               f"D{c['D']} causal={c['causal']} off={c['off']} {c['dt']}")
-        check(ok_out and ok_lse and fro <= t["fro"],
+               f"D{c['D']} causal={c['causal']} off={c['off']} {c['dt']}"
+               + (" [B,S,H,D] view" if c.get("bshd") else ""))
+        check(ok_out and ok_lse and fro <= t["fro"] and lse_bits,
               f"K1 {tag}: out err {e_out} (tol {t['out']}), relative "
               f"norm err {fro} (tol {t['fro']}), lse err {e_lse} (tol "
-              f"{t['lse']})")
+              f"{t['lse']}), lse bit-equal on NEG_INF rows {lse_bits}")
         w = worst.setdefault(str(c["dt"]), {"out": 0.0, "fro": 0.0})
         w["out"], w["fro"] = max(w["out"], e_out), max(w["fro"], fro)
+    check(masked_rows > 0, "no case had a row that sees no key")
     tol_s = json.dumps({str(k): v for k, v in tol.items()})
     print(f"[K1] {len(cases)} cases within tolerance; worst out err and "
-          f"relative norm err by dtype {json.dumps(worst)}; tolerances "
+          f"relative norm err by dtype {json.dumps(worst)}; lse bit-equal "
+          f"to the plain version's on all {masked_rows} rows whose "
+          f"largest score is NEG_INF or that visit no tile; tolerances "
           f"{tol_s}")
 
     timed = []
@@ -338,6 +386,7 @@ def phase_flash(torch, report):
         timed.append(rec)
         print("[K1] " + json.dumps(rec))
     report["flash_fwd"] = {"cases": len(cases), "worst_out_err": worst,
+                           "neg_inf_rows_bit_equal": masked_rows,
                            "timed": timed, "main": timed[-1]}
 
 
@@ -351,6 +400,46 @@ def _bwd_case(torch, att, g, c):
                                        q_offset=c["off"])
     delta = (do.float() * out.float()).sum(-1)
     return q, k, v, do, lse, delta
+
+
+def _check_bwd(torch, att, c, tol, worst, q, k, v, do, lse, delta):
+    """K2 and K3 on one case against ``flash_attention_bwd_ref`` on the
+    same inputs; raises beyond the tolerance, updates ``worst``."""
+    kw = dict(causal=c["causal"], q_offset=c["off"])
+    dq = att.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
+    dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    refs = att.flash_attention_bwd_ref(q, k, v, lse, delta, do, **kw)
+    t = tol[c["dt"]]
+    a, atol, rtol = t["elem"]
+    if a:
+        p, ds = att._bwd_probs(q, k, v, lse, delta, do, sm_scale=None,
+                               **kw)
+        ads, Hkv = ds.abs(), c["Hkv"]
+        spreads = (
+            torch.einsum("bhqk,bhkd->bhqd", ads,
+                         att._repeat_kv(k, c["H"]).float().abs()),
+            att._sum_groups(torch.einsum(
+                "bhqk,bhqd->bhkd", ads, q.float().abs()), Hkv),
+            att._sum_groups(torch.einsum(
+                "bhqk,bhqd->bhkd", p, do.float().abs()), Hkv))
+        del p, ds, ads
+    else:
+        spreads = (0.0, 0.0, 0.0)
+    tag = (f"B{c['B']} H{c['H']}/{c['Hkv']} Sq{c['Sq']} Sk{c['Sk']} "
+           f"D{c['D']} causal={c['causal']} off={c['off']} {c['dt']}"
+           + (" fed by K1" if c.get("fed_by_k1") else ""))
+    w = worst.setdefault(str(c["dt"]), {})
+    for name, got, ref, spread in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      refs, spreads):
+        err, ok = within(torch, got, ref, a * spread + atol, rtol)
+        d_norm = float((got.float() - ref.float()).norm())
+        r_norm = float(ref.float().norm())
+        fro = d_norm / r_norm if r_norm > 0 else d_norm
+        check(ok and fro <= t["fro"],
+              f"K2/K3 {name} {tag}: max err {err} (tol {t['elem']}), "
+              f"relative norm err {fro} (tol {t['fro']})")
+        e = w.setdefault(name, {"err": 0.0, "fro": 0.0})
+        e["err"], e["fro"] = max(e["err"], err), max(e["fro"], fro)
 
 
 def phase_flash_bwd(torch, report):
@@ -386,42 +475,32 @@ def phase_flash_bwd(torch, report):
     worst = {}
     for c in cases:
         q, k, v, do, lse, delta = _bwd_case(torch, att, g, c)
-        kw = dict(causal=c["causal"], q_offset=c["off"])
-        dq = att.flash_attention_bwd_dq(q, k, v, lse, delta, do, **kw)
-        dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
-        refs = att.flash_attention_bwd_ref(q, k, v, lse, delta, do, **kw)
-        t = tol[c["dt"]]
-        a, atol, rtol = t["elem"]
-        if a:
-            p, ds = att._bwd_probs(q, k, v, lse, delta, do, sm_scale=None,
-                                   **kw)
-            ads, Hkv = ds.abs(), c["Hkv"]
-            spreads = (
-                torch.einsum("bhqk,bhkd->bhqd", ads,
-                             att._repeat_kv(k, c["H"]).float().abs()),
-                att._sum_groups(torch.einsum(
-                    "bhqk,bhqd->bhkd", ads, q.float().abs()), Hkv),
-                att._sum_groups(torch.einsum(
-                    "bhqk,bhqd->bhkd", p, do.float().abs()), Hkv))
-            del p, ds, ads
-        else:
-            spreads = (0.0, 0.0, 0.0)
-        tag = (f"B{c['B']} H{c['H']}/{c['Hkv']} Sq{c['Sq']} Sk{c['Sk']} "
-               f"D{c['D']} causal={c['causal']} off={c['off']} {c['dt']}")
-        w = worst.setdefault(str(c["dt"]), {})
-        for name, got, ref, spread in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                          refs, spreads):
-            err, ok = within(torch, got, ref, a * spread + atol, rtol)
-            d_norm = float((got.float() - ref.float()).norm())
-            r_norm = float(ref.float().norm())
-            fro = d_norm / r_norm if r_norm > 0 else d_norm
-            check(ok and fro <= t["fro"],
-                  f"K2/K3 {name} {tag}: max err {err} (tol {t['elem']}), "
-                  f"relative norm err {fro} (tol {t['fro']})")
-            e = w.setdefault(name, {"err": 0.0, "fro": 0.0})
-            e["err"], e["fro"] = max(e["err"], err), max(e["fro"], fro)
+        _check_bwd(torch, att, c, tol, worst, q, k, v, do, lse, delta)
+    # K1 feeding K2/K3 as in training: K1's own out and lse, delta from
+    # K1's out, dO zero on rows that see no key.  off -64: the first
+    # 64-row tile visits nothing; off -63: its rows but the last see no key
+    # inside a visited tile, so lse = NEG_INF there must be exact or p
+    # overflows.
+    chained = 0
+    for off in (-64, -63):
+        for H, Hkv in ((8, 2), (32, 8)):
+            for D in (64, 128):
+                c = dict(B=2, H=H, Hkv=Hkv, Sq=300, Sk=300, D=D, causal=True,
+                         off=off, dt=torch.bfloat16, fed_by_k1=True)
+                q, k, v = _attn_inputs(torch, g, 2, H, Hkv, 300, 300, D,
+                                       c["dt"])
+                out, lse = att.flash_attention_fwd(q, k, v, causal=True,
+                                                   q_offset=off)
+                sees = torch.arange(300, device="cuda") + off >= 0
+                do = (torch.randn(q.shape, generator=g, device="cuda")
+                      * sees[:, None]).to(c["dt"])
+                delta = (do.float() * out.float()).sum(-1)
+                _check_bwd(torch, att, c, tol, worst, q, k, v, do, lse,
+                           delta)
+                chained += 1
     tol_s = json.dumps({str(k): v for k, v in tol.items()})
-    print(f"[K2/K3] {len(cases)} cases within tolerance; worst element err "
+    print(f"[K2/K3] {len(cases)} cases and {chained} fed by K1 within "
+          f"tolerance; worst element err "
           f"and relative norm err by dtype {json.dumps(worst)}; tolerances "
           f"{tol_s}")
 
@@ -496,8 +575,8 @@ def phase_flash_bwd(torch, report):
         }
         main[name] = rec
         print(f"[{name}] " + json.dumps(rec))
-    report["flash_bwd"] = {"cases": len(cases), "worst": worst,
-                           "main": main}
+    report["flash_bwd"] = {"cases": len(cases), "fed_by_k1": chained,
+                           "worst": worst, "main": main}
 
 
 def _counters():
@@ -753,7 +832,7 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
 
 # Kernel-name patterns of a train step's device time, by kind.
 _STEP_KINDS = (
-    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_fma_kernel")),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),

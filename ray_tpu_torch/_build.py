@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by its own ``nvcc`` process into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use, for ``sm_90a``.  Libraries land in
-``ray_tpu_torch/_build/`` under a name that carries a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+``ray_tpu_torch/_build/`` under a name that carries a hash of the source,
+of every header (``*.cuh``) under ``csrc/`` and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 ``build()`` starts every requested ``nvcc`` at once and waits for all of
 them.  Nothing here runs at import: the CPU tests import every module on a
 machine that has no ``nvcc``.
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

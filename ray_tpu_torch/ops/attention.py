@@ -32,9 +32,10 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-#: Tile sizes of csrc/flash_fwd.cu and csrc/flash_bwd.cu (BQ, BK).  They
-#: only matter for rows that see no key at all, whose output and gradient
-#: depend on which tiles were visited.
+#: The visiting rule's tiles (q rows, keys) of csrc/flash_fwd.cu and
+#: csrc/flash_bwd.cu.  K1's bf16 blocks hold 128 q rows, two such tiles,
+#: each with its own cut.  The tiles only matter for rows that see no key
+#: at all, whose output and gradient depend on which tiles were visited.
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_K = 64
 

@@ -136,3 +136,62 @@ def test_flash_attention_cpu_uses_kernel_tiles():
     # Tile 0 visits no key tile: O = 0, lse ~ NEG_INF.
     assert float(out[:, :, :64].abs().max()) == 0.0
     assert float(lse[:, :, :64].max()) <= -1e29
+
+
+# The 64x64 visiting rule that K1 keeps inside its 128-row blocks (each
+# 64-row half of a block cuts its own key tiles): Sq 192 / Sk 320 are 3 q
+# tiles and 5 key tiles of 64.  Offsets: whole tiles and half tiles that
+# visit nothing, a tile whose rows see no key inside a visited tile, the
+# diagonal, and past the end.
+@pytest.mark.parametrize("q_offset", [-128, -70, -64, -1, 0, 64, 200])
+def test_flash_ref_matches_pallas_at_kernel_tiles(q_offset):
+    q, k, v = _qkv(2, 1, 16, Sq=192, Sk=320, seed=8)
+    scale = 16 ** -0.5
+    bq, bk = tatt.KERNEL_BLOCK_Q, tatt.KERNEL_BLOCK_K
+    assert (bq, bk) == (64, 64)
+    j_out, j_lse = jatt._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, True,
+        q_offset, bq, bk, True)
+    j_lse = np.asarray(j_lse)[..., 0]
+    # On a CPU tensor the kernel wrapper is the plain version at the
+    # kernel's visiting tiles.
+    t_out, t_lse = tatt.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+        sm_scale=scale, q_offset=q_offset)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), j_lse, atol=2e-5, rtol=1e-6)
+    # Rows that see no key (no visited tile, or every visited key masked)
+    # carry lse = NEG_INF exactly, in both packages.
+    dead = j_lse <= tatt.NEG_INF / 2
+    assert dead.any() == (q_offset < 0)
+    np.testing.assert_array_equal(t_lse.numpy()[dead], j_lse[dead])
+
+
+def test_lib_path_hashes_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ renames (so rebuilds) every kernel
+    library; an unchanged tree keeps its names."""
+    from ray_tpu_torch import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._lib_path("k") != second
+
+
+def test_kernel_layout_keeps_model_views():
+    """q, k and v reach the kernels as the model makes them, transposed
+    [B, S, H, D] views (seq stride H * D): no copy on the path; a view
+    whose rows the kernels cannot read with 16-byte loads is copied."""
+    x = torch.zeros(2, 40, 8, 64, dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert tatt._kernel_layout(view) is view
+    odd = torch.zeros(2, 40, 8, 68, dtype=torch.bfloat16)[..., :64]
+    assert odd.transpose(1, 2).stride(2) == 8 * 68
+    fixed = tatt._kernel_layout(odd.transpose(1, 2))
+    assert fixed.is_contiguous() and fixed.equal(odd.transpose(1, 2))
