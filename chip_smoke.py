@@ -17,17 +17,21 @@ no result line):
    and both dtypes, lse bit-equal on rows that see no key; timed beside
    the plain version and SDPA.
 5. K2 and K3 (``csrc/flash_bwd.cu``) against ``flash_attention_bwd_ref``
-   (dQ, dK, dV) over K1's first cases and 32/8 heads, and fed by K1's own
-   (out, lse) at negative offsets; timed at the training shape beside the
-   plain version and SDPA's backward.
-6. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
+   (dQ, dK, dV) over K1's first cases and 32/8 heads, Sq > Sk, and fed by
+   K1's own (out, lse) at negative offsets; timed at the training shape
+   (S = 512 and 2048) beside the plain version and SDPA's backward, with
+   the SM clock sampled before and after each timed loop.
+6. tiny serve: the tiny model in fp32 (head_dim 32, ``llm_app``'s default
+   model) served on the card by ``InferenceEngine``; its greedy tokens
+   must equal the same engine's on the CPU from the same parameters.
+7. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
    from a seed) at B=1, S=2048, then a 2-layer full-width model against the
    same weights in fp32 on the CPU through the plain path.
-7. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
+8. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
    once, 4 admitted while those decode); checks counts, page balance and
    greedy agreement with ``generate``; then a warm 8-request window under
    the profiler: wall, prefill and device busy time of that one window.
-8. train: the serving model is freed; ``make_train_step(llama_loss)``
+9. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
@@ -36,9 +40,9 @@ no result line):
    full-width model's loss and every gradient in bf16 against the same
    weights in fp32 on the CPU through the plain path (B=1, S=256).
 
-Kernel launch counters are zeroed just before the forward, the serve and
-the train paths run and read just after: K1 and K4 must have launched on
-the forward and serve paths, and the train path must launch K1 twice per
+Kernel launch counters are zeroed just before the tiny serve, the
+forward, the serve and the train paths run and read just after: K1 and K4
+must have launched on the tiny serve, forward and serve paths, and the train path must launch K1 twice per
 layer and step (forward and remat recompute), K2 and K3 once and K4 never.
 The second-to-last JSON line lists every kernel with its launches per
 path, error, times and bound; the last line is the device record.
@@ -133,6 +137,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def clocks_line() -> str:
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def within(torch, got, ref, atol: float, rtol: float):
     """(max_abs_err, ok) for |got - ref| <= atol + rtol * |ref|."""
     g, r = got.float(), ref.float()
@@ -183,6 +196,10 @@ def phase_build(report):
             f"{k} {regs} registers, {spill} B spilled"
             for k, regs, spill in kernels))
     print(f"[build] kernels built in {report['build_s']:.1f} s")
+    spills = [(k, spill) for k, _, spill in report["ptxas"]["flash_bwd"]
+              if k.startswith("flash_bwd_dkv_kernel<bf16")]
+    check(bool(spills) and not any(sp for _, sp in spills),
+          f"the bf16 K3 kernels spill (or were not found): {spills}")
 
 
 def phase_rms(torch, report):
@@ -242,7 +259,8 @@ def _attn_inputs(torch, g, B, H, Hkv, Sq, Sk, D, dt):
 
 def _flash_cases(torch):
     """K1's case grid: the main-path shapes; the first port's grid (both
-    dtypes, GQA groups, head dims, offsets, ragged lengths); the bf16
+    dtypes, GQA groups, head dims, offsets, ragged lengths); head_dim 32
+    in fp32; the bf16
     kernel's block edges (128-row blocks made of two 64-row visiting
     tiles, 64-key tiles); and q/k/v as transposed [B, S, H, D] views, as
     the model passes them."""
@@ -257,6 +275,14 @@ def _flash_cases(torch):
                     for off in (-64, 0, 256, Sk + 64):
                         cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
                                           D=D, causal=True, off=off, dt=dt))
+    # head_dim 32 (the tiny model's): fp32 only.
+    for H, Hkv in ((4, 4), (8, 2)):
+        for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
+            cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                              causal=False, off=0, dt=torch.float32))
+            for off in (-64, 0, 256, Sk + 64):
+                cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                                  causal=True, off=off, dt=torch.float32))
     for H, Hkv in ((4, 4), (8, 2), (32, 8)):
         for D in (64, 128):
             for Sq in (1, 65, 127, 129, 200):
@@ -472,6 +498,21 @@ def phase_flash_bwd(torch, report):
                     for off in (-64, 0, 256, Sk + 64):
                         cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
                                           D=D, causal=True, off=off, dt=dt))
+    # head_dim 32 (the tiny model's), fp32 only.
+    for H, Hkv in ((4, 4), (8, 2), (32, 8)):
+        for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
+            cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                              causal=False, off=0, dt=torch.float32))
+            for off in (-64, 0, 256, Sk + 64):
+                cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                                  causal=True, off=off, dt=torch.float32))
+    # Sq > Sk: K3's ragged q tail, and many more (q head, q tile)
+    # iterations than the ring has stages.
+    for H, Hkv in ((8, 2), (32, 8)):
+        for D in (64, 128):
+            for off in (0, -64):
+                cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=1000, Sk=256, D=D,
+                                  causal=True, off=off, dt=torch.bfloat16))
     worst = {}
     for c in cases:
         q, k, v, do, lse, delta = _bwd_case(torch, att, g, c)
@@ -504,8 +545,23 @@ def phase_flash_bwd(torch, report):
           f"and relative norm err by dtype {json.dumps(worst)}; tolerances "
           f"{tol_s}")
 
-    # The training shape: B=1, H=32, Hkv=8, S=2048, D=128, causal, bf16.
-    B, H, Hkv, S, D = 1, 32, 8, 2048, 128
+    # The training shape: B=1, H=32, Hkv=8, D=128, causal, bf16, at S =
+    # 2048 (the main path's) and 512.
+    timed = {}
+    for S in (512, 2048):
+        timed[S] = _time_bwd(torch, att, F, g, S)
+    main = timed[2048]
+    report["flash_bwd"] = {"cases": len(cases), "fed_by_k1": chained,
+                           "worst": worst, "main": main,
+                           "s512": timed[512]}
+
+
+def _time_bwd(torch, att, F, g, S):
+    """K2 and K3 at [1, 32, S, 128], Hkv 8, causal, bf16: error against the
+    plain version, device and per-call time, the plain version's and SDPA's
+    backward's time, the bound, and the SM clock before and after each
+    kernel's timed loops."""
+    B, H, Hkv, D = 1, 32, 8, 128
     c = dict(B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=D, causal=True, off=0,
              dt=torch.bfloat16)
     q, k, v, do, lse, delta = _bwd_case(torch, att, g, c)
@@ -514,6 +570,7 @@ def phase_flash_bwd(torch, report):
     dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
     errs = [float((x.float() - r.float()).abs().max())
             for x, r in zip((dq, dk, dv), ref)]
+    del ref
     # Library yardstick for the pair: the device time of SDPA's backward,
     # i.e. one forward and backward less the forward alone.
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -554,14 +611,19 @@ def phase_flash_bwd(torch, report):
                           lambda: att.flash_attention_bwd_dkv(
                               q, k, v, lse, delta, do), max(errs[1:])),
     }
-    main = {}
+    out = {}
     for name, (flops, nbytes, kern, err) in work.items():
+        clocks_before = clocks_line()
+        call_ms = time_ms(torch, kern)
+        ms = device_ms(torch, kern)
+        clocks_after = clocks_line()
         rec = {
             "shape": dict(B=B, H=H, Hkv=Hkv, S=S, D=D, causal=True,
                           dtype="bfloat16"),
             "max_abs_err": err,
-            "call_ms": time_ms(torch, kern),
-            "ms": device_ms(torch, kern),
+            "call_ms": call_ms, "ms": ms,
+            # SM clock, max SM clock (nvidia-smi) around the timed loops.
+            "clocks_before": clocks_before, "clocks_after": clocks_after,
             # The plain version and the library call compute K2 and K3
             # together: their times are the pair's.
             "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
@@ -573,10 +635,9 @@ def phase_flash_bwd(torch, report):
                          >= nbytes / PEAK_HBM_BYTES else "bytes"),
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
-        main[name] = rec
-        print(f"[{name}] " + json.dumps(rec))
-    report["flash_bwd"] = {"cases": len(cases), "fed_by_k1": chained,
-                           "worst": worst, "main": main}
+        out[name] = rec
+        print(f"[{name}] S={S} " + json.dumps(rec))
+    return out
 
 
 def _counters():
@@ -596,6 +657,56 @@ def _reset_counts():
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_tiny_serve(torch, report, seed: int):
+    """The tiny model in fp32 (d_model 128, 4 heads: head_dim 32, as
+    ``llm_app``'s default model) served on the card: 6 requests through an
+    ``InferenceEngine``, greedy; the tokens must equal those of the same
+    engine built on the CPU from the same parameters (plain versions of
+    the kernels there), and K1 and K4 must have launched."""
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = llama_init(cfg, torch.Generator(device="cuda")
+                        .manual_seed(seed + 4))
+    cpu_params = Llama(cfg, torch.device("cpu"))
+    cpu_params.load_state_dict(params.state_dict())
+    ecfg = EngineConfig(batch_slots=4, page_size=16, max_prompt_len=128,
+                        max_new_tokens_cap=32, prefix_cache=False)
+    rng = np.random.default_rng(seed + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 77, 128, 17, 64)]
+    new = 16
+
+    def serve(p, device):
+        engine = InferenceEngine(cfg, p, ecfg, seed=seed, device=device)
+        try:
+            streams = [engine.submit(t, max_new_tokens=new) for t in prompts]
+            return [list(st) for st in streams], engine.stats()
+        finally:
+            engine.shutdown()
+
+    _reset_counts()
+    got, stats = serve(params, None)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want, _ = serve(cpu_params, "cpu")
+    same = sum(int(a == b) for g, w in zip(got, want) for a, b in zip(g, w))
+    print(f"[tiny-serve] tiny model fp32 (head_dim {cfg.head_dim}) on the "
+          f"card: {len(prompts)} requests x {new} greedy tokens, "
+          f"{same}/{len(prompts) * new} equal to the CPU engine's; "
+          f"{stats['decode_traces']} decode / {stats['prefill_traces']} "
+          f"prefill traces; launches {counts}")
+    check(all(len(t) == new for t in got), "tiny serve lost tokens")
+    check(got == want, f"tiny serve on the card differs from the CPU: "
+                       f"{got} vs {want}")
+    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
+          f"tiny serve did not launch K1 and K4: {counts}")
+    report["tiny_serve"] = {"head_dim": cfg.head_dim, "requests":
+                            len(prompts), "tokens_equal": same,
+                            "launches": counts}
 
 
 def phase_forward(torch, report, seed: int):
@@ -834,7 +945,8 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
 _STEP_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_fma_kernel")),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                          "flash_bwd_dkv_fma_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("AdamW (fused)", ("multi_tensor_apply", "fused_adam")),
 )
@@ -1004,6 +1116,7 @@ def main(argv=None) -> int:
     phase_rms(torch, report)
     phase_flash(torch, report)
     phase_flash_bwd(torch, report)
+    phase_tiny_serve(torch, report, args.seed)
     cfg, params = phase_forward(torch, report, args.seed)
     phase_serve(torch, report, cfg, params, args.seed)
     phase_serve_profile(torch, report, cfg, params, args.seed)
@@ -1017,7 +1130,7 @@ def main(argv=None) -> int:
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
-             for path in ("forward", "serve", "train")}
+             for path in ("tiny_serve", "forward", "serve", "train")}
     bwd = report["flash_bwd"]["main"]
     kernels = []
     for name, src, replaces, main in (

@@ -50,13 +50,13 @@
 //   and a producer warpgroup cut to 40 registers spilled), so the
 //   producer is one warp and nothing is rebalanced.
 // - fp32 inputs: a CUDA-core kernel (64x64 tiles, exact fp32 products,
-//   everything through shared memory); no fp32 call is on the main path.
+//   everything through shared memory) for head_dim 32, 64 and 128; the
+//   tiny model (head_dim 32) runs it, no fp32 call is on the main path.
 //
 // Not done yet: overlapping one tile's softmax with the next tile's
 // products inside a warpgroup (it needs P of two tiles live: beyond 168
 // registers it spills), and a persistent grid.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -346,57 +346,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime so the library
-// needs no link against the driver.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map of a bf16 [B, heads, S, D] tensor with element strides (sb,
-// sh, ss) and a contiguous last dim, read in boxes of [128 rows x 64] into
-// the 128-byte swizzle; rows past S read as zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
-                int D, int64_t sb, int64_t sh, int64_t ss) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int H, int Hkv, int Sq,
                         int Sk, const int64_t* st, float scale, int causal,
                         int q_offset, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, H, Sq, D, st[0], st[1], st[2]) ||
-      !tensor_map(&tk, k, B, Hkv, Sk, D, st[3], st[4], st[5]) ||
-      !tensor_map(&tv, v, B, Hkv, Sk, D, st[6], st[7], st[8]))
+  if (!rt::tensor_map_bf16(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ) ||
+      !rt::tensor_map_bf16(&tk, k, B, Hkv, Sk, D, st[3], st[4], st[5], BKV) ||
+      !rt::tensor_map_bf16(&tv, v, B, Hkv, Sk, D, st[6], st[7], st[8], BKV))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<D>::BYTES;
   auto kern = flash_fwd_kernel<bf16, D>;
@@ -606,6 +564,9 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                             scale, causal, q_offset, s);
   if (dtype == 0 && D == 64)
     return f32::launch<64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
+                           scale, causal, q_offset, s);
+  if (dtype == 0 && D == 32)
+    return f32::launch<32>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
                            scale, causal, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,12 +20,17 @@ PyTorch runs eagerly: where JAX donates the pools, the port writes K/V into
 them in place (``index_put_`` through a per-layer view) and returns the same
 tensors.  The PRNG key becomes a ``torch.Generator`` on the pools' device,
 advanced in place by each sampling call and returned in the key's place.
-``trace_count(s)`` count calls of each program (there is no tracing).
+``trace_count(name)`` counts the distinct signatures a program has run with
+(the shapes, dtypes and devices of its tensor arguments and its static
+config): the port's counterpart of a jit specialization, so it stays flat
+after warmup as the JAX package's does.  ``call_count(name)`` counts
+calls.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, Hashable, List, Optional, Set, Tuple
 
 import torch
 
@@ -39,17 +44,44 @@ PagedPools = Dict[str, torch.Tensor]  # {"k": [L, P+1, H_kv, page, D], "v"}
 #:  "vb": [A+1, L, r, kv_out], "scale": [A+1]}: slot A is the zero adapter.
 AdapterArrays = Dict[str, torch.Tensor]
 
-#: Calls per program, standing in for the JAX package's trace counters.
-PROGRAM_CALLS: Dict[str, int] = {"decode": 0, "prefill": 0}
+#: The paged programs whose signatures and calls are counted.
+#: ``prefill_prefix`` stays at 0 until ``paged_prefill_prefix`` is ported.
+PAGED_PROGRAMS = ("decode", "prefill", "prefill_prefix")
+_signatures: Dict[str, Set[Hashable]] = {n: set() for n in PAGED_PROGRAMS}
+_calls: Dict[str, int] = {n: 0 for n in PAGED_PROGRAMS}
+_count_lock = threading.Lock()
+
+
+def _record(name: str, config: LlamaConfig, *tensors: torch.Tensor) -> None:
+    """One call of program ``name``: count it, and its signature (what a
+    jit specialization keys on) if new."""
+    sig = (config, tuple((tuple(t.shape), t.dtype, str(t.device))
+                         for t in tensors))
+    with _count_lock:
+        _calls[name] += 1
+        _signatures[name].add(sig)
 
 
 def trace_count(name: str) -> int:
-    """Times the named program (``"decode"`` / ``"prefill"``) ran."""
-    return PROGRAM_CALLS[name]
+    """Distinct signatures the named program (``"decode"`` /
+    ``"prefill"`` / ``"prefill_prefix"``) has run with."""
+    return len(_signatures[name])
 
 
 def trace_counts() -> Dict[str, int]:
-    return dict(PROGRAM_CALLS)
+    """Snapshot of every program's trace count."""
+    with _count_lock:
+        return {n: len(s) for n, s in _signatures.items()}
+
+
+def call_count(name: str) -> int:
+    """Times the named program ran."""
+    return _calls[name]
+
+
+def call_counts() -> Dict[str, int]:
+    with _count_lock:
+        return dict(_calls)
 
 
 def init_paged_pools(config: LlamaConfig, num_pages: int, page_size: int,
@@ -205,7 +237,8 @@ def paged_decode_step(config: LlamaConfig, params: Llama,
     place.  Returns (next_tokens [B] int32, new_seq_lens [B], key, pools),
     all on the pools' device: the caller's one readback per step is the
     tokens."""
-    PROGRAM_CALLS["decode"] += 1
+    _record("decode", config, pools["k"], adapters["qa"], tokens,
+            page_tables, seq_lens, active, temps, adapter_ids)
     B = tokens.shape[0]
     maxp = page_tables.shape[1]
     ps = pools["k"].shape[3]
@@ -277,7 +310,8 @@ def paged_prefill(config: LlamaConfig, params: Llama, pools: PagedPools,
     real ones (their K/V is masked by length until decode overwrites it).
     The pools are updated in place.  Returns (first_token 0-d int32, key,
     pools)."""
-    PROGRAM_CALLS["prefill"] += 1
+    _record("prefill", config, pools["k"], adapters["qa"], tokens,
+            page_table, temp)
     _, s_pad = tokens.shape
     ps = pools["k"].shape[3]
     hkv, hd = config.n_kv_heads, config.head_dim

@@ -40,7 +40,9 @@ KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_K = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+#: The head dims the kernels are built for, per dtype.  bf16 rows of 32
+#: (64 bytes) would need TMA's and wgmma's 64-byte swizzle: not built.
+_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (64, 128)}
 _fns = {}
 
 
@@ -220,8 +222,10 @@ def _check_kernel_args(q, k, v, *more):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    dims = _HEAD_DIMS[q.dtype]
+    if q.shape[-1] not in dims:
+        raise ValueError(f"flash attention kernels take head_dim {dims} for "
+                         f"{q.dtype}, got head_dim {q.shape[-1]}")
     if any(t.device != q.device for t in (k, v, *more)):
         raise ValueError("flash attention tensors must be on one device")
 
@@ -379,10 +383,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: Optional[float] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward: ``(out, lse[B, H, Sq] fp32)``.  CUDA
-    tensors launch kernel K1 (bf16 or fp32, head_dim 64 or 128, any
-    sequence lengths); CPU tensors take ``flash_attention_ref``.  Under
-    autograd the gradient comes from K2/K3 (CUDA) or the plain backward
-    (CPU); lse carries no gradient."""
+    tensors launch kernel K1 (head_dim 32, 64 or 128 in fp32, 64 or 128
+    in bf16; any sequence lengths); CPU tensors take
+    ``flash_attention_ref``.  Under autograd the gradient comes from K2/K3
+    (CUDA) or the plain backward (CPU); lse carries no gradient."""
     _check_shapes(q, k, v)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.paged import (PageAllocator, init_adapter_pool,
+from ..models.paged import (PageAllocator, call_counts, init_adapter_pool,
                             init_paged_pools, paged_decode_step,
                             paged_prefill, trace_counts)
 
@@ -340,23 +340,28 @@ class InferenceEngine:
                 t: dict(rec, queued=len(self._queues.get(t, [])))
                 for t, rec in self._tenants.items()
             }
-        calls = trace_counts()
+        traces, calls = trace_counts(), call_counts()
         return {
             "steps": self.step_count,
             "active_seqs": sum(1 for s in self.slots if s is not None),
             "queued": queued,
             "free_pages": self.allocator.free_count,
             "total_pages": self.allocator.total,
+            "shared_pages": self.allocator.shared_count,
             "completed": self.completed,
             "shed": self.shed,
             "cancelled": self.cancelled_count,
+            "decode_traces": traces["decode"],
+            "prefill_traces": traces["prefill"],
+            "prefill_prefix_traces": traces["prefill_prefix"],
+            "mode": self.config.mode,
+            "tenants": tenants,
+            "prefix_cache": None,  # the prefix cache is not ported yet
             "tokens": self.tokens_emitted,
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": self.prefill_s,
             "decode_calls": calls["decode"],
             "prefill_calls": calls["prefill"],
-            "mode": self.config.mode,
-            "tenants": tenants,
         }
 
     def warmup(self) -> None:

@@ -131,6 +131,43 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
             tatt.flash_attention_bwd_dkv.launches) == before
 
 
+@pytest.mark.parametrize("causal,q_offset,Sq,Sk", [
+    (True, 0, 192, 192), (True, -64, 192, 192), (True, 64, 128, 256),
+    (False, 0, 128, 192)])
+def test_flash_attention_head_dim_32_grads_match_pallas(causal, q_offset, Sq,
+                                                        Sk):
+    """The port's ``flash_attention`` under autograd at head_dim 32 (the
+    tiny model's; fp32 K1-K3 on the card) against the vjp of JAX's
+    ``flash_attention`` with the Pallas kernels in interpret mode, both at
+    the kernels' 64 x 64 tiles; rows that see no key carry dO = 0."""
+    r = np.random.default_rng(15)
+    D, H, Hkv = 32, 4, 2
+    q = r.standard_normal((2, H, Sq, D)).astype(np.float32)
+    k = r.standard_normal((2, Hkv, Sk, D)).astype(np.float32)
+    v = r.standard_normal((2, Hkv, Sk, D)).astype(np.float32)
+    do = r.standard_normal((2, H, Sq, D)).astype(np.float32)
+    if causal:
+        do[:, :, np.arange(Sq) + q_offset < 0] = 0.0
+    bq, bk = tatt.KERNEL_BLOCK_Q, tatt.KERNEL_BLOCK_K
+
+    def f(q, k, v):
+        return jatt.flash_attention(q, k, v, causal=causal,
+                                    q_offset=q_offset, block_q=bq,
+                                    block_k=bk, force_pallas=True,
+                                    interpret=True)
+
+    j_out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tatt.flash_attention(*leaves, causal=causal, q_offset=q_offset)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=2e-5)
+    for name, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("q_offset", [0, -64, 100])
 def test_bwd_is_the_gradient_of_the_plain_forward(q_offset):
     """The Function's backward (the plain K2/K3) against autograd through

@@ -117,8 +117,8 @@ def test_paged_prefill_and_decode_match_jax(models):
         np.testing.assert_array_equal(t_lens.numpy(), np.asarray(j_lens))
         _assert_pools_close(t_pools, j_pools, scratch)
         tokens, lens = t_toks.numpy(), t_lens.numpy()
-    assert tpaged.trace_count("decode") >= 3
-    assert tpaged.trace_count("prefill") >= 2
+    assert tpaged.call_count("decode") >= 3
+    assert tpaged.call_count("prefill") >= 2
 
 
 def test_sample_tokens_temperature_is_seeded():
@@ -211,6 +211,65 @@ def test_engine_greedy_streams_match_jax_generate(models):
         assert st["completed"] == 5 and st["tokens"] == 28
         assert st["prefill_calls"] >= 5 and st["decode_calls"] >= 5
         assert all(s.ttft_s is not None and s.ttft_s > 0 for s in streams)
+    finally:
+        engine.shutdown()
+
+
+def test_one_decode_signature_for_any_mix(models):
+    """The reference's compile-count contract on a port engine: after
+    warmup, no admission mix (occupancy, lengths, churn, cancellation)
+    adds a signature to the decode or prefill program; calls still
+    count."""
+    engine = _engine(models)
+    try:
+        engine.warmup()  # the decode step and every prefill bucket
+        decode_before = tpaged.trace_count("decode")
+        prefill_before = tpaged.trace_count("prefill")
+        calls_before = tpaged.call_count("decode")
+        assert decode_before >= 1 and prefill_before >= 2
+        streams = [engine.submit([1], max_new_tokens=3),
+                   engine.submit([2, 3, 4, 5, 6, 7, 8, 9], max_new_tokens=9),
+                   engine.submit([4, 5], max_new_tokens=1)]
+        mid = engine.submit([8] * 12, max_new_tokens=5)
+        for s in streams:
+            list(s)
+        list(mid)
+        c = engine.submit([6], max_new_tokens=17)
+        next(c)
+        c.cancel()
+        _wait_pages_free(engine)
+        assert tpaged.trace_count("decode") == decode_before
+        assert tpaged.trace_count("prefill") == prefill_before
+        assert tpaged.call_count("decode") > calls_before
+        st = engine.stats()
+        assert st["decode_traces"] == decode_before
+        assert st["prefill_traces"] == prefill_before
+    finally:
+        engine.shutdown()
+
+
+#: The keys of the JAX engine's ``stats()`` (ray_tpu/serve/engine.py), less
+#: ``adapters``, which comes with the adapter pool.
+_REFERENCE_STATS_KEYS = (
+    "steps", "active_seqs", "queued", "free_pages", "total_pages",
+    "shared_pages", "completed", "shed", "cancelled", "decode_traces",
+    "prefill_traces", "prefill_prefix_traces", "mode", "tenants",
+    "prefix_cache")
+
+
+def test_engine_stats_carry_reference_keys(models):
+    engine = _engine(models)
+    try:
+        assert len(list(engine.submit([1, 2, 3], max_new_tokens=3))) == 3
+        st = engine.stats()
+        missing = [k for k in _REFERENCE_STATS_KEYS if k not in st]
+        assert not missing, missing
+        assert st["shared_pages"] == engine.allocator.shared_count
+        assert st["decode_traces"] == tpaged.trace_count("decode") >= 1
+        assert st["prefill_traces"] == tpaged.trace_count("prefill") >= 1
+        assert st["prefill_prefix_traces"] == 0  # not ported yet
+        assert st["prefix_cache"] is None
+        assert st["mode"] == "continuous" and "default" in st["tenants"]
     finally:
         engine.shutdown()
 

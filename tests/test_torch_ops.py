@@ -167,6 +167,45 @@ def test_flash_ref_matches_pallas_at_kernel_tiles(q_offset):
     np.testing.assert_array_equal(t_lse.numpy()[dead], j_lse[dead])
 
 
+# Head dim 32 (the tiny model's) at the kernels' 64 x 64 tiles, as the fp32
+# kernels take it on the card: ragged lengths and offsets that leave rows
+# with no key.
+@pytest.mark.parametrize("causal,q_offset,Sq,Sk", [
+    (True, 0, 192, 192), (True, -64, 192, 192), (True, 64, 128, 256),
+    (False, 0, 128, 192)])
+def test_flash_attention_head_dim_32_matches_pallas(causal, q_offset, Sq,
+                                                    Sk):
+    q, k, v = _qkv(4, 2, 32, Sq=Sq, Sk=Sk, seed=9)
+    scale = 32 ** -0.5
+    j_out, j_lse = jatt._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, causal,
+        q_offset, tatt.KERNEL_BLOCK_Q, tatt.KERNEL_BLOCK_K, True)
+    t_out, t_lse = tatt.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        q_offset=q_offset)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse)[..., 0],
+                               atol=2e-5, rtol=1e-6)
+
+
+def test_kernel_args_head_dims_per_dtype():
+    """The kernels take head_dim 32, 64 and 128 in fp32 and 64 and 128 in
+    bf16; anything else raises ValueError naming the dtype and the head
+    dim (no fallback)."""
+    for D in (32, 64, 128):
+        x = torch.zeros(1, 2, 8, D)
+        tatt._check_kernel_args(x, x, x)
+    for D in (64, 128):
+        x = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
+        tatt._check_kernel_args(x, x, x)
+    for dt, D in ((torch.bfloat16, 32), (torch.bfloat16, 96),
+                  (torch.float32, 16), (torch.float32, 256)):
+        x = torch.zeros(1, 2, 8, D, dtype=dt)
+        name = str(dt).split(".")[-1]
+        with pytest.raises(ValueError, match=rf"{name}, got head_dim {D}"):
+            tatt._check_kernel_args(x, x, x)
+
+
 def test_lib_path_hashes_headers(tmp_path, monkeypatch):
     """An edited header under csrc/ renames (so rebuilds) every kernel
     library; an unchanged tree keeps its names."""
