@@ -8,22 +8,26 @@ no result line):
 
 1. card: ``nvidia-smi`` name and power limit.
 2. build: compile every kernel under ``ray_tpu_torch/csrc`` with nvcc for
-   sm_90a (one nvcc per source, all started together).
+   sm_90a (one nvcc per source, all started together); print ptxas's
+   registers and spills, and fail if the bf16 K2 or K3 kernels spill.
 3. K4 (``csrc/rms_norm.cu``) against its plain version, timed beside the
    plain version and ``F.rms_norm``.
 4. K1 (``csrc/flash_fwd.cu``) against ``flash_attention_ref`` (out and
    lse) over Llama-3-8B shapes, GQA groups, head dims, offsets, ragged
    lengths, the bf16 kernel's block edges, transposed [B, S, H, D] views
-   and both dtypes, lse bit-equal on rows that see no key; timed beside
-   the plain version and SDPA.
+   and both dtypes (head_dim 32 in both), lse bit-equal on rows that see
+   no key; timed beside the plain version and SDPA.
 5. K2 and K3 (``csrc/flash_bwd.cu``) against ``flash_attention_bwd_ref``
-   (dQ, dK, dV) over K1's first cases and 32/8 heads, Sq > Sk, and fed by
-   K1's own (out, lse) at negative offsets; timed at the training shape
-   (S = 512 and 2048) beside the plain version and SDPA's backward, with
-   the SM clock sampled before and after each timed loop.
-6. tiny serve: the tiny model in fp32 (head_dim 32, ``llm_app``'s default
-   model) served on the card by ``InferenceEngine``; its greedy tokens
-   must equal the same engine's on the CPU from the same parameters.
+   (dQ, dK, dV) over K1's first cases and 32/8 heads (head_dim 32 in both
+   dtypes), Sq > Sk, and fed by K1's own (out, lse) at negative offsets;
+   timed at the training shape (S = 512 and 2048) beside the plain
+   version and SDPA's backward, with the SM clock sampled before and
+   after each timed loop.
+6. tiny serve: the tiny model (head_dim 32, ``llm_app``'s default model)
+   served on the card by ``InferenceEngine``, in fp32 (its greedy tokens
+   must equal the same engine's on the CPU from the same parameters) and
+   in bf16, its default dtype (its prefill logits held against the fp32
+   forward of the same parameters on the CPU).
 7. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
    from a seed) at B=1, S=2048, then a 2-layer full-width model against the
    same weights in fp32 on the CPU through the plain path.
@@ -101,25 +105,31 @@ def profile_window(torch, fn, iters: int = 10):
     The wall time is the host clock from the first call to the end of the
     last kernel, inside the profiled window, so busy / wall is the device's
     busy share of the same window.  Only device activity is traced (no host
-    op records), which keeps the profiler's own host time small.  Raises
-    when the profiler saw no device activity."""
+    op records), which keeps the profiler's own host time small.  A window
+    in which the profiler saw no device activity is profiled once more
+    (CUPTI dropped a whole window's records once on the H100 machine);
+    raises if the second one saw none either."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
-    check(bool(by_name), "torch.profiler saw no device activity")
-    return by_name, wall_ms
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / iters)
+        if by_name:
+            return by_name, wall_ms
+        print("[profile] torch.profiler saw no device activity; profiling "
+              "the window once more", flush=True)
+    raise PhaseError("torch.profiler saw no device activity")
 
 
 def device_ms(torch, fn, iters: int = 10) -> float:
@@ -196,10 +206,12 @@ def phase_build(report):
             f"{k} {regs} registers, {spill} B spilled"
             for k, regs, spill in kernels))
     print(f"[build] kernels built in {report['build_s']:.1f} s")
+    # The wgmma kernels of K2 and K3 (bf16, head_dim 64 and 128).
     spills = [(k, spill) for k, _, spill in report["ptxas"]["flash_bwd"]
-              if k.startswith("flash_bwd_dkv_kernel<bf16")]
-    check(bool(spills) and not any(sp for _, sp in spills),
-          f"the bf16 K3 kernels spill (or were not found): {spills}")
+              if k.startswith(("flash_bwd_dq_kernel<bf16",
+                               "flash_bwd_dkv_kernel<bf16"))]
+    check(len(spills) == 4 and not any(sp for _, sp in spills),
+          f"the bf16 K2/K3 kernels spill (or were not found): {spills}")
 
 
 def phase_rms(torch, report):
@@ -260,10 +272,9 @@ def _attn_inputs(torch, g, B, H, Hkv, Sq, Sk, D, dt):
 def _flash_cases(torch):
     """K1's case grid: the main-path shapes; the first port's grid (both
     dtypes, GQA groups, head dims, offsets, ragged lengths); head_dim 32
-    in fp32; the bf16
-    kernel's block edges (128-row blocks made of two 64-row visiting
-    tiles, 64-key tiles); and q/k/v as transposed [B, S, H, D] views, as
-    the model passes them."""
+    in both dtypes; the bf16 wgmma kernel's block edges (128-row blocks
+    made of two 64-row visiting tiles, 64-key tiles); and q/k/v as
+    transposed [B, S, H, D] views, as the model passes them."""
     cases = [dict(B=1, H=32, Hkv=8, Sq=s, Sk=s, D=128, causal=True, off=0,
                   dt=torch.bfloat16) for s in (512, 2048)]
     for dt in (torch.bfloat16, torch.float32):
@@ -275,14 +286,15 @@ def _flash_cases(torch):
                     for off in (-64, 0, 256, Sk + 64):
                         cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
                                           D=D, causal=True, off=off, dt=dt))
-    # head_dim 32 (the tiny model's): fp32 only.
-    for H, Hkv in ((4, 4), (8, 2)):
-        for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
-            cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
-                              causal=False, off=0, dt=torch.float32))
-            for off in (-64, 0, 256, Sk + 64):
+    # head_dim 32 (the tiny model's), both dtypes.
+    for dt in (torch.float32, torch.bfloat16):
+        for H, Hkv in ((4, 4), (8, 2)):
+            for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
                 cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
-                                  causal=True, off=off, dt=torch.float32))
+                                  causal=False, off=0, dt=dt))
+                for off in (-64, 0, 256, Sk + 64):
+                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                                      causal=True, off=off, dt=dt))
     for H, Hkv in ((4, 4), (8, 2), (32, 8)):
         for D in (64, 128):
             for Sq in (1, 65, 127, 129, 200):
@@ -498,14 +510,15 @@ def phase_flash_bwd(torch, report):
                     for off in (-64, 0, 256, Sk + 64):
                         cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk,
                                           D=D, causal=True, off=off, dt=dt))
-    # head_dim 32 (the tiny model's), fp32 only.
-    for H, Hkv in ((4, 4), (8, 2), (32, 8)):
-        for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
-            cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
-                              causal=False, off=0, dt=torch.float32))
-            for off in (-64, 0, 256, Sk + 64):
+    # head_dim 32 (the tiny model's), both dtypes.
+    for dt in (torch.float32, torch.bfloat16):
+        for H, Hkv in ((4, 4), (8, 2), (32, 8)):
+            for Sq, Sk in ((1000, 1000), (256, 1000), (64, 512)):
                 cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
-                                  causal=True, off=off, dt=torch.float32))
+                                  causal=False, off=0, dt=dt))
+                for off in (-64, 0, 256, Sk + 64):
+                    cases.append(dict(B=2, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=32,
+                                      causal=True, off=off, dt=dt))
     # Sq > Sk: K3's ragged q tail, and many more (q head, q tile)
     # iterations than the ring has stages.
     for H, Hkv in ((8, 2), (32, 8)):
@@ -660,27 +673,25 @@ def _read_counts():
 
 
 def phase_tiny_serve(torch, report, seed: int):
-    """The tiny model in fp32 (d_model 128, 4 heads: head_dim 32, as
-    ``llm_app``'s default model) served on the card: 6 requests through an
-    ``InferenceEngine``, greedy; the tokens must equal those of the same
-    engine built on the CPU from the same parameters (plain versions of
-    the kernels there), and K1 and K4 must have launched."""
-    from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
+    """The tiny model (d_model 128, 4 heads: head_dim 32, as ``llm_app``'s
+    default model) served on the card: 6 requests through an
+    ``InferenceEngine``, greedy, and K1 and K4 must have launched.  In
+    fp32 the tokens must equal those of the same engine built on the CPU
+    from the same parameters (plain versions of the kernels there).  In
+    bf16, the model's default dtype, the prefill forward's logits of the
+    same prompts are held against the fp32 forward of the same parameters
+    on the CPU, under the forward phase's rule."""
+    from ray_tpu_torch.models.llama import (Llama, LlamaConfig, llama_apply,
+                                            llama_init)
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
 
-    cfg = LlamaConfig.tiny(dtype=torch.float32)
-    params = llama_init(cfg, torch.Generator(device="cuda")
-                        .manual_seed(seed + 4))
-    cpu_params = Llama(cfg, torch.device("cpu"))
-    cpu_params.load_state_dict(params.state_dict())
     ecfg = EngineConfig(batch_slots=4, page_size=16, max_prompt_len=128,
                         max_new_tokens_cap=32, prefix_cache=False)
     rng = np.random.default_rng(seed + 4)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (5, 40, 77, 128, 17, 64)]
+    lengths = (5, 40, 77, 128, 17, 64)
     new = 16
 
-    def serve(p, device):
+    def serve(cfg, p, device, prompts):
         engine = InferenceEngine(cfg, p, ecfg, seed=seed, device=device)
         try:
             streams = [engine.submit(t, max_new_tokens=new) for t in prompts]
@@ -688,25 +699,67 @@ def phase_tiny_serve(torch, report, seed: int):
         finally:
             engine.shutdown()
 
-    _reset_counts()
-    got, stats = serve(params, None)
-    torch.cuda.synchronize()
-    counts = _read_counts()
-    want, _ = serve(cpu_params, "cpu")
-    same = sum(int(a == b) for g, w in zip(got, want) for a, b in zip(g, w))
-    print(f"[tiny-serve] tiny model fp32 (head_dim {cfg.head_dim}) on the "
-          f"card: {len(prompts)} requests x {new} greedy tokens, "
-          f"{same}/{len(prompts) * new} equal to the CPU engine's; "
-          f"{stats['decode_traces']} decode / {stats['prefill_traces']} "
-          f"prefill traces; launches {counts}")
-    check(all(len(t) == new for t in got), "tiny serve lost tokens")
-    check(got == want, f"tiny serve on the card differs from the CPU: "
-                       f"{got} vs {want}")
-    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
-          f"tiny serve did not launch K1 and K4: {counts}")
-    report["tiny_serve"] = {"head_dim": cfg.head_dim, "requests":
-                            len(prompts), "tokens_equal": same,
-                            "launches": counts}
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = LlamaConfig.tiny(dtype=dt)
+        name = str(dt).split(".")[-1]
+        params = llama_init(cfg, torch.Generator(device="cuda")
+                            .manual_seed(seed + 4))
+        cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        cpu_params = Llama(cpu_cfg, torch.device("cpu"))
+        cpu_params.load_state_dict(params.state_dict())
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lengths]
+        _reset_counts()
+        got, stats = serve(cfg, params, None, prompts)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(all(len(t) == new for t in got),
+              f"tiny serve ({name}) lost tokens")
+        check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
+              f"tiny serve ({name}) did not launch K1 and K4: {counts}")
+        rec = {"head_dim": cfg.head_dim, "requests": len(prompts),
+               "launches": counts}
+        if dt == torch.float32:
+            want, _ = serve(cpu_cfg, cpu_params, "cpu", prompts)
+            same = sum(int(a == b) for g, w in zip(got, want)
+                       for a, b in zip(g, w))
+            msg = (f"{same}/{len(prompts) * new} equal to the CPU "
+                   f"engine's")
+            check(got == want, f"tiny serve on the card differs from the "
+                               f"CPU: {got} vs {want}")
+            rec["tokens_equal"] = same
+        else:
+            # The prompts' prefill forward on the card (K1 at head_dim 32
+            # in bf16, K4) against fp32 on the CPU, as the forward phase.
+            with torch.no_grad():
+                logits = torch.cat([llama_apply(
+                    cfg, params, torch.from_numpy(t).long()[None].cuda())[0]
+                    .float().cpu() for t in prompts])
+                ref = torch.cat([llama_apply(
+                    cpu_cfg, cpu_params, torch.from_numpy(t).long()[None])[0]
+                    for t in prompts])
+            rel = float((logits - ref).norm() / ref.norm())
+            top1 = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+            rel_tol, top1_min = 5e-2, 0.75
+            msg = (f"prefill logits vs fp32 CPU: rel err {rel:.4g} (tol "
+                   f"{rel_tol}), top-1 agreement {top1:.4f} (min "
+                   f"{top1_min})")
+            check(rel <= rel_tol and top1 >= top1_min,
+                  f"tiny bf16 prefill disagrees with the fp32 CPU "
+                  f"forward: rel {rel}, top-1 {top1}")
+            rec.update(rel_err=rel, top1=top1, rel_tol=rel_tol,
+                       top1_min=top1_min)
+        print(f"[tiny-serve] tiny model {name} (head_dim {cfg.head_dim}) on "
+              f"the card: {len(prompts)} requests x {new} greedy tokens, "
+              f"{msg}; {stats['decode_traces']} decode / "
+              f"{stats['prefill_traces']} prefill traces; launches {counts}")
+        out[name] = rec
+    report["tiny_serve"] = out
+    # The launch counts of the serving path are the two runs' together.
+    report["tiny_serve"]["launches"] = {
+        k: sum(r["launches"][k] for r in out.values())
+        for k in out["float32"]["launches"]}
 
 
 def phase_forward(torch, report, seed: int):
@@ -944,7 +997,7 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
 # Kernel-name patterns of a train step's device time, by kind.
 _STEP_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_fma_kernel")),
-    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_fma_kernel")),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                           "flash_bwd_dkv_fma_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),

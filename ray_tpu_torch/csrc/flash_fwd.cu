@@ -49,9 +49,13 @@
 //   warpgroups and more (setmaxnreg did not raise the consumers' share,
 //   and a producer warpgroup cut to 40 registers spilled), so the
 //   producer is one warp and nothing is rebalanced.
-// - fp32 inputs: a CUDA-core kernel (64x64 tiles, exact fp32 products,
-//   everything through shared memory) for head_dim 32, 64 and 128; the
-//   tiny model (head_dim 32) runs it, no fp32 call is on the main path.
+// - fp32 inputs at head_dim 32, 64 and 128, and bf16 at head_dim 32: a
+//   CUDA-core kernel (64x64 tiles, everything through shared memory).  It
+//   converts bf16 to fp32 as a tile lands, computes in fp32 (exact fp32
+//   products) and rounds the output to the input's type once.  The tiny
+//   model (head_dim 32, either dtype) runs it; no call on the main path
+//   does.  A bf16 row of 32 values is 64 bytes, which the wgmma kernel's
+//   128-byte swizzle does not fit.
 //
 // Not done yet: overlapping one tile's softmax with the next tile's
 // products inside a warpgroup (it needs P of two tiles live: beyond 168
@@ -368,7 +372,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------ the fp32 kernel
+// ------------------------------------------- the CUDA-core (fp32) kernel
 
 namespace f32 {
 
@@ -384,28 +388,15 @@ __host__ __device__ constexpr int ld_in() { return D + 4; }  // q, k, v
 template <int D>
 __host__ __device__ constexpr int ld_out() { return D + 4; }  // output
 
-// Copy a 64-row tile of D elements per row (row stride `stride` elements)
-// into shared memory [64][ld_in]; rows at or past `rows` are zero-filled so
-// the products over them stay finite.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t stride, int rows) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_in<D>() + c) = val;
-  }
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(BQ + 2 * BK) * ld_in<D>() * sizeof(float) +
          (size_t)(BQ * LDS + BQ * ld_out<D>()) * sizeof(float);
 }
 
+// Inputs of type T (fp32, or bf16 at head_dim 32) are converted to fp32
+// as they land in shared memory; every product and the softmax run in
+// fp32, and the output is rounded to T once.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -415,7 +406,6 @@ __global__ void __launch_bounds__(NTHREADS)
                          int64_t k_sb, int64_t k_sh, int64_t k_ss,
                          int64_t v_sb, int64_t v_sh, int64_t v_ss,
                          float scale, int causal, int q_offset) {
-  static_assert(std::is_same<T, float>::value, "the FMA kernel is fp32");
   constexpr int LDI = ld_in<D>();
   constexpr int LDO = ld_out<D>();
   extern __shared__ __align__(128) unsigned char smem[];
@@ -429,11 +419,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const int hk = h / group;
   const int q0 = qt * BQ;
   const int q_rows = min(BQ, Sq - q0);
-  const float* kp = k + b * k_sb + hk * k_sh;
-  const float* vp = v + b * v_sb + hk * v_sh;
+  const T* kp = k + b * k_sb + hk * k_sh;
+  const T* vp = v + b * v_sb + hk * v_sh;
 
-  load_tile<D>(Qs, q + b * q_sb + h * q_sh + (int64_t)q0 * q_ss, q_ss,
-               q_rows);
+  rt::load_tile_f32<T, D, LDI, NTHREADS>(
+      Qs, q + b * q_sb + h * q_sh + (int64_t)q0 * q_ss, q_ss, q_rows);
   for (int i = threadIdx.x; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -452,8 +442,10 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int kb = 0; kb < hi; ++kb) {
     const int k0 = kb * BK;
     const int k_rows = min(BK, Sk - k0);
-    load_tile<D>(Ks, kp + (int64_t)k0 * k_ss, k_ss, k_rows);
-    load_tile<D>(Vs, vp + (int64_t)k0 * v_ss, v_ss, k_rows);
+    rt::load_tile_f32<T, D, LDI, NTHREADS>(Ks, kp + (int64_t)k0 * k_ss, k_ss,
+                                           k_rows);
+    rt::load_tile_f32<T, D, LDI, NTHREADS>(Vs, vp + (int64_t)k0 * v_ss, v_ss,
+                                           k_rows);
     __syncthreads();
 
     // Scores for this warp's 16 rows: Ss[row][0:BK] = q . k^T (unscaled).
@@ -512,27 +504,28 @@ __global__ void __launch_bounds__(NTHREADS)
   if (row < q_rows) {
     const float l_safe = fmaxf(l, 1e-30f);  // fully-masked rows stay finite
     const int64_t o_row = ((int64_t)b * H + h) * Sq + q0 + row;
-    float* og = out + o_row * D;
+    T* og = out + o_row * D;
     const float* orow = Os + row * LDO;
-    for (int c = half; c < D; c += 2) og[c] = orow[c] / l_safe;
+    for (int c = half; c < D; c += 2)
+      og[c] = rt::from_f32<T>(orow[c] / l_safe);
     if (half == 0) lse[o_row] = m + logf(l_safe);
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int H, int Hkv, int Sq, int Sk,
                    const int64_t* st, float scale, int causal, int q_offset,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd_fma_kernel<float, D>;
+  auto kern = flash_fwd_fma_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, H,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H,
       H / Hkv, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale, causal, q_offset);
   return cudaGetLastError();
@@ -559,15 +552,18 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* out,
   if (dtype == 1 && D == 64)
     return launch_bf16<64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
                            scale, causal, q_offset, s);
+  if (dtype == 1 && D == 32)
+    return f32::launch<bf16, 32>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                 strides, scale, causal, q_offset, s);
   if (dtype == 0 && D == 128)
-    return f32::launch<128>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
-                            scale, causal, q_offset, s);
+    return f32::launch<float, 128>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                   strides, scale, causal, q_offset, s);
   if (dtype == 0 && D == 64)
-    return f32::launch<64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
-                           scale, causal, q_offset, s);
+    return f32::launch<float, 64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                  strides, scale, causal, q_offset, s);
   if (dtype == 0 && D == 32)
-    return f32::launch<32>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, strides,
-                           scale, causal, q_offset, s);
+    return f32::launch<float, 32>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                  strides, scale, causal, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

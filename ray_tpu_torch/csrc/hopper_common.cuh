@@ -82,6 +82,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------- CUDA-core fp32 tiles
+
+// An element of the output type T (float or bf16) from fp32.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Copy a 64-row tile of D elements of T (float or bf16) per row, row
+// stride `stride` elements, 16-byte aligned rows, into the fp32 shared
+// tile dst [64][LD], converting to fp32; rows at or past `rows` are
+// zero-filled so the products over them stay finite.  The NT threads of
+// the block share the copy, one 16-byte load each at a time.
+template <typename T, int D, int LD, int NT>
+__device__ __forceinline__ void load_tile_f32(float* dst, const T* src,
+                                              int64_t stride, int rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = D / VEC;
+  for (int i = threadIdx.x; i < 64 * CHUNKS; i += NT) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * VEC;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) raw = *reinterpret_cast<const uint4*>(src + r * stride + c);
+    float* d = dst + r * LD + c;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<uint4*>(d) = raw;
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+      *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
+      *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
+  }
+}
+
 // ------------------------------------------------------------ ldmatrix
 
 // Four 8x8 b16 matrices from shared memory.  Lanes 8i..8i+7 give the row

@@ -40,9 +40,11 @@ KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_K = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: The head dims the kernels are built for, per dtype.  bf16 rows of 32
-#: (64 bytes) would need TMA's and wgmma's 64-byte swizzle: not built.
-_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (64, 128)}
+#: The head dims the kernels are built for, per dtype.  bf16 at 64 and 128
+#: runs the wgmma + TMA kernels; bf16 at 32 (a 64-byte row, which their
+#: 128-byte swizzle does not fit) and fp32 run the CUDA-core kernels,
+#: which compute in fp32.
+_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (32, 64, 128)}
 _fns = {}
 
 
@@ -276,8 +278,9 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            do: torch.Tensor, *, causal: bool = True,
                            sm_scale: Optional[float] = None,
                            q_offset: int = 0) -> torch.Tensor:
-    """dQ through kernel K2 for CUDA tensors; CPU tensors take the plain
-    version.  Arguments as ``flash_attention_bwd_ref``."""
+    """dQ through kernel K2 for CUDA tensors (head_dim 32, 64 or 128 in
+    fp32 or bf16); CPU tensors take the plain version.  Arguments as
+    ``flash_attention_bwd_ref``."""
     _check_shapes(q, k, v)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if not q.is_cuda:
@@ -312,8 +315,9 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             sm_scale: Optional[float] = None,
                             q_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) through kernel K3 for CUDA tensors; CPU tensors take the
-    plain version.  Arguments as ``flash_attention_bwd_ref``."""
+    """(dK, dV) through kernel K3 for CUDA tensors (head_dim 32, 64 or 128
+    in fp32 or bf16); CPU tensors take the plain version.  Arguments as
+    ``flash_attention_bwd_ref``."""
     _check_shapes(q, k, v)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if not q.is_cuda:
@@ -383,8 +387,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: Optional[float] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward: ``(out, lse[B, H, Sq] fp32)``.  CUDA
-    tensors launch kernel K1 (head_dim 32, 64 or 128 in fp32, 64 or 128
-    in bf16; any sequence lengths); CPU tensors take
+    tensors launch kernel K1 (head_dim 32, 64 or 128 in fp32 or bf16; any
+    sequence lengths); CPU tensors take
     ``flash_attention_ref``.  Under autograd the gradient comes from K2/K3
     (CUDA) or the plain backward (CPU); lse carries no gradient."""
     _check_shapes(q, k, v)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Compare builds of the bf16 flash-attention dK/dV kernel (K3) on one GPU.
+"""Compare builds of the bf16 flash-attention backward kernels on one GPU.
 
-    python3 scripts/k3_builds.py             # from the repo root, on the card
+    python3 scripts/bwd_builds.py dq     # K2 (dQ), from the repo root
+    python3 scripts/bwd_builds.py dkv    # K3 (dK, dV)
 
-Each build is the committed ``ray_tpu_torch/csrc/flash_bwd.cu`` with one
-text substitution (``VARIANTS``), compiled with the flags of
-``ray_tpu_torch._build`` into ``ray_tpu_torch/_build/k3_builds/``.  The
-script prints each build's ptxas registers and spills for the bf16 K3,
+Each build is the committed ``ray_tpu_torch/csrc/flash_bwd.cu`` with a few
+text substitutions (``VARIANTS``, each replacing every match),
+compiled with the flags of ``ray_tpu_torch._build`` into
+``ray_tpu_torch/_build/bwd_builds/<kernel>/``.  The script prints each
+build's ptxas registers and spills for the kernel's bf16 instantiations,
 checks every build that computes the kernel's function on every K2/K3
 case of ``chip_smoke.phase_flash_bwd`` (each in a process of its own, so
 a faulting build cannot poison the others), then times all builds in
@@ -19,7 +21,6 @@ design: only their times mean something.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +28,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 SRC = ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu"
-OUT = ROOT / "ray_tpu_torch" / "_build" / "k3_builds"
+OUT = ROOT / "ray_tpu_torch" / "_build" / "bwd_builds"
+
+# Per kernel: its C entry, its pointer arguments, the ptxas name of its
+# bf16 kernels and its wrapper in ray_tpu_torch.ops.attention.
+KERNELS = {
+    "dq": ("rt_flash_bwd_dq", 7, "flash_bwd_dq_kernel<bf16",
+           "flash_attention_bwd_dq"),
+    "dkv": ("rt_flash_bwd_dkv", 8, "flash_bwd_dkv_kernel<bf16",
+            "flash_attention_bwd_dkv"),
+}
 
 # One consumer warpgroup running all four products, the dV/dK products
 # issued as soon as p^T and ds^T are ready.
@@ -104,8 +114,42 @@ HANDOFF_FIRST = """    if (i >= ST) rt::named_barrier(PFREE + s, 256);
     rt::wgmma_commit();
 """
 
-# name: (is the kernel's function, [(old, new), ...])
-VARIANTS = {
+# K2: the next tile's S and dP issued before the previous tile's dQ
+# product has retired; the previous stage is released once they have.
+DQ_LOOP = """        rt::wgmma_commit();
+        rt::wgmma_wait<0>();
+        fence_all(acc);
+        fence_all(da);
+      }
+      rt::mbar_arrive(empty + 8 * s);  // this thread is done with stage s
+    }
+"""
+DQ_LOOP_OVERLAP = """        rt::wgmma_commit();
+        if (j + 1 == hi) {
+          rt::wgmma_wait<0>();
+          fence_all(acc);
+          fence_all(da);
+          rt::mbar_arrive(empty + 8 * s);
+        }
+      } else {
+        rt::mbar_arrive(empty + 8 * s);
+      }
+    }
+"""
+DQ_SCORES_WAIT = """        rt::wgmma_wait<0>();
+        fence_all(sc);
+        fence_all(dp);
+"""
+DQ_SCORES_WAIT_OVERLAP = """        rt::wgmma_wait<0>();  // the previous tile's dQ product too
+        fence_all(sc);
+        fence_all(dp);
+        fence_all(acc);
+        fence_all(da);
+        if (j > 0) rt::mbar_arrive(empty + 8 * ((j - 1) % ST));
+"""
+
+# kernel: {name: (is the kernel's function, [(old, new), ...])}
+VARIANTS = {"dkv": {
     "shipped": (True, []),
     "guarded_wait": (True, [("rt::mbar_wait_spin(bk.full", "rt::mbar_wait(bk.full")]),
     "handoff_first": (True, [(HANDOFF_LATE, HANDOFF_FIRST)]),
@@ -125,36 +169,60 @@ VARIANTS = {
     "ablation_no_exp": (False, [
         ("x[i] = rt::ex2(fmaf(x[i], sl2, -lse_c * LOG2E));",
          "x[i] = fmaf(x[i], sl2, -lse_c * LOG2E);")]),
-}
+}, "dq": {
+    "shipped": (True, []),
+    "spin_wait": (True, [("rt::mbar_wait(full + 8 * s, (j / ST) & 1);",
+                          "rt::mbar_wait_spin(full + 8 * s, (j / ST) & 1);")]),
+    "three_stages": (True, [
+        ("constexpr int ST = 2;                   // ring stages",
+         "constexpr int ST = 3;                   // ring stages")]),
+    "overlap": (True, [
+        ("        uint32_t da[4][4];\n", ""),
+        ("    rt::mbar_wait(qbar, 0);\n",
+         "    uint32_t da[4][4];\n    rt::mbar_wait(qbar, 0);\n"),
+        (DQ_SCORES_WAIT, DQ_SCORES_WAIT_OVERLAP),
+        (DQ_LOOP, DQ_LOOP_OVERLAP)]),
+    "ablation_no_score_products": (False, [
+        ("        issue_scores<D>(sc, q_addr, k_addr);             // S = Q.K^T\n",
+         ""),
+        ("        issue_scores<D>(dp, do_addr, k_addr + L::TILE);  // dP = dO.V^T\n",
+         "")]),
+    "ablation_no_dq_product": (False, [
+        ("        issue_acc<D>(acc, da, k_addr);  // dQ += dS.K\n", "")]),
+    "ablation_no_exp": (False, [
+        ("p = rt::ex2(fmaf(sc[i], sl2, -lse_l2[r]));",
+         "p = fmaf(sc[i], sl2, -lse_l2[r]);")]),
+}}
 
 
-def build_all():
+def build_all(kernel):
     from ray_tpu_torch import _build
 
     import chip_smoke as cs
 
     src = SRC.read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
+    out = OUT / kernel
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (_, subs) in VARIANTS.items():
+    for name, (_, subs) in VARIANTS[kernel].items():
         text = src
         for old, new in subs:
             if old not in text:
-                raise SystemExit(f"{name}: substitution no longer matches "
-                                 f"{SRC.name}: {old[:60]!r}")
+                raise SystemExit(f"{kernel} {name}: substitution no longer "
+                                 f"matches {SRC.name}: {old[:60]!r}")
             text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
+        cu = out / f"{name}.cu"
         cu.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(SRC.parent),
-               "-o", str(OUT / f"{name}.so"), str(cu)]
+               "-o", str(out / f"{name}.so"), str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     built = []
     for name, proc in procs.items():
         log, _ = proc.communicate()
-        k3 = [r for r in cs.ptxas_report(log) if "dkv_kernel<bf16" in r[0]]
-        print(f"[build] {name}: rc {proc.returncode}; bf16 K3 (kernel, "
-              f"registers, spilled bytes) {k3}", flush=True)
+        rows = [r for r in cs.ptxas_report(log) if KERNELS[kernel][2] in r[0]]
+        print(f"[build] {kernel} {name}: rc {proc.returncode}; (kernel, "
+              f"registers, spilled bytes) {rows}", flush=True)
         if proc.returncode == 0:
             built.append(name)
         else:
@@ -162,31 +230,37 @@ def build_all():
     return built
 
 
-def load(name):
-    lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-    fn = lib.rt_flash_bwd_dkv
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+def load(kernel, name):
+    entry, n_ptrs = KERNELS[kernel][:2]
+    lib = ctypes.CDLL(str(OUT / kernel / f"{name}.so"))
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def check_one(name):
-    """Every K2/K3 case of chip_smoke with K3 from build ``name``."""
+def check_one(kernel, name):
+    """Every K2/K3 case of chip_smoke with the kernel from build ``name``."""
     import torch
 
     import chip_smoke as cs
     from ray_tpu_torch.ops import attention as att
 
-    att._fns["rt_flash_bwd_dkv"] = load(name)
+    att._fns[KERNELS[kernel][0]] = load(kernel, name)
     cs.phase_flash_bwd(torch, {})
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--check":
-        check_one(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--check":
+        check_one(sys.argv[2], sys.argv[3])
         return 0
+    if len(sys.argv) != 2 or sys.argv[1] not in KERNELS:
+        print(f"usage: {sys.argv[0]} {{{','.join(KERNELS)}}}", file=sys.stderr)
+        return 2
+    kernel = sys.argv[1]
+    entry, _, _, wrapper = KERNELS[kernel]
     import torch
 
     import chip_smoke as cs
@@ -194,16 +268,17 @@ def main():
     from ray_tpu_torch.ops import attention as att
 
     if not torch.cuda.is_available():
-        print("k3_builds: CUDA is not available", file=sys.stderr)
+        print("bwd_builds: CUDA is not available", file=sys.stderr)
         return 2
     print(f"[card] {cs.card_line()}", flush=True)
-    built = build_all()
+    built = build_all(kernel)
     _build.build()
     timed = []
     for name in built:
-        if VARIANTS[name][0]:
-            r = subprocess.run([sys.executable, __file__, "--check", name],
-                               capture_output=True, text=True, timeout=600)
+        if VARIANTS[kernel][name][0]:
+            r = subprocess.run(
+                [sys.executable, __file__, "--check", kernel, name],
+                capture_output=True, text=True, timeout=600)
             print(f"[check] {name}: "
                   + ("every K2/K3 case within tolerance" if r.returncode == 0
                      else f"FAILED\n{(r.stdout + r.stderr)[-2000:]}"),
@@ -211,7 +286,8 @@ def main():
             if r.returncode:
                 continue
         timed.append(name)
-    libs = {name: load(name) for name in timed}
+    libs = {name: load(kernel, name) for name in timed}
+    fn = getattr(att, wrapper)
     g = torch.Generator(device="cuda").manual_seed(3)
     inputs = {S: cs._bwd_case(torch, att, g, dict(
         B=1, H=32, Hkv=8, Sq=S, Sk=S, D=128, causal=True, off=0,
@@ -219,14 +295,14 @@ def main():
     res = {n: {S: [] for S in inputs} for n in timed}
     for turn in range(3):
         for name in (timed if turn % 2 == 0 else timed[::-1]):
-            att._fns["rt_flash_bwd_dkv"] = libs[name]
+            att._fns[entry] = libs[name]
             for S, (q, k, v, do, lse, delta) in inputs.items():
-                ms = cs.device_ms(torch, lambda: att.flash_attention_bwd_dkv(
-                    q, k, v, lse, delta, do), iters=20)
+                ms = cs.device_ms(torch, lambda: fn(q, k, v, lse, delta, do),
+                                  iters=20)
                 res[name][S].append(round(ms * 1e3, 2))
         print(f"[clocks] round {turn}: {cs.clocks_line()}", flush=True)
     for name in timed:
-        print(f"[time] {name}: S=512 {res[name][512]} us; "
+        print(f"[time] {kernel} {name}: S=512 {res[name][512]} us; "
               f"S=2048 {res[name][2048]} us")
     return 0
 

@@ -168,6 +168,56 @@ def test_flash_attention_head_dim_32_grads_match_pallas(causal, q_offset, Sq,
                                    rtol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("causal,q_offset,Sq,Sk", [
+    (True, 0, 192, 192), (True, -64, 192, 192), (True, 64, 128, 256),
+    (False, 0, 128, 192)])
+def test_flash_attention_head_dim_32_bf16_grads_match_pallas(causal,
+                                                             q_offset, Sq,
+                                                             Sk):
+    """As above in bf16 (the tiny model's default dtype; the CUDA-core
+    kernels take it on the card): the same bf16 inputs through both.  Both
+    compute in fp32 and round each output to bf16, so they may differ by
+    the rounding of sums taken in another order: per element 2^-7 |want|
+    + 2^-8, and 2^-8 in relative norm."""
+    import ml_dtypes
+
+    r = np.random.default_rng(16)
+    D, H, Hkv = 32, 4, 2
+    q = r.standard_normal((2, H, Sq, D)).astype(ml_dtypes.bfloat16)
+    k = r.standard_normal((2, Hkv, Sk, D)).astype(ml_dtypes.bfloat16)
+    v = r.standard_normal((2, Hkv, Sk, D)).astype(ml_dtypes.bfloat16)
+    do = r.standard_normal((2, H, Sq, D)).astype(np.float32)
+    if causal:
+        do[:, :, np.arange(Sq) + q_offset < 0] = 0.0
+    do = do.astype(ml_dtypes.bfloat16)
+    bq, bk = tatt.KERNEL_BLOCK_Q, tatt.KERNEL_BLOCK_K
+
+    def f(q, k, v):
+        return jatt.flash_attention(q, k, v, causal=causal,
+                                    q_offset=q_offset, block_q=bq,
+                                    block_k=bk, force_pallas=True,
+                                    interpret=True)
+
+    j_out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+    leaves = [bf16(a).requires_grad_(True) for a in (q, k, v)]
+    out = tatt.flash_attention(*leaves, causal=causal, q_offset=q_offset)
+    out.backward(bf16(do))
+    assert out.dtype == torch.bfloat16
+    for name, got, w in zip(("out", "dq", "dk", "dv"),
+                            (out.detach(), *(t.grad for t in leaves)),
+                            (j_out, *want)):
+        got = got.float().numpy()
+        w = np.asarray(w, dtype=np.float32)
+        np.testing.assert_allclose(got, w, rtol=2 ** -7, atol=2 ** -8,
+                                   err_msg=name)
+        assert np.linalg.norm(got - w) <= 2 ** -8 * np.linalg.norm(w), name
+
+
 @pytest.mark.parametrize("q_offset", [0, -64, 100])
 def test_bwd_is_the_gradient_of_the_plain_forward(q_offset):
     """The Function's backward (the plain K2/K3) against autograd through

@@ -44,6 +44,28 @@ def test_llama_apply_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+# bf16, the tiny model's default dtype (head_dim 32): each side rounds
+# every weight, activation and attention output to bf16 (unit roundoff
+# 2^-8) at its own places, so each lies about 0.6 % (relative norm) from
+# the fp32 logits and the two about 0.7 % apart; 2e-2 bounds that with
+# room, and top-1 flips only where the top-2 margin is inside it.
+@pytest.mark.parametrize("name", ["tiny", "mha"])
+def test_llama_apply_bf16_matches_jax(name):
+    jc, jp, _, _ = _pair(name, dtype=jnp.bfloat16)
+    tc = dataclasses.replace(LlamaConfig.tiny(), n_heads=jc.n_heads,
+                             n_kv_heads=jc.n_kv_heads)
+    assert tc.dtype == torch.bfloat16 and tc.head_dim == 32
+    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(2).integers(0, 512, (2, 64)).astype(np.int32)
+    want = np.asarray(jax_llama_apply(jc, jp, jnp.asarray(toks)),
+                      dtype=np.float32)
+    got = llama_apply(tc, tp, torch.from_numpy(toks).long()).float().numpy()
+    assert got.shape == want.shape
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).mean()
+    assert rel <= 2e-2 and top1 >= 0.9, (rel, top1)
+
+
 @pytest.mark.parametrize("name,batch", [("tiny", 1), ("tiny", 2),
                                         ("gqa4", 2)])
 def test_generate_greedy_matches_jax(name, batch):
