@@ -9,9 +9,14 @@ no result line):
 1. card: ``nvidia-smi`` name and power limit.
 2. build: compile every kernel under ``ray_tpu_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together); print ptxas's
-   registers and spills, and fail if the bf16 K2 or K3 kernels spill.
-3. K4 (``csrc/rms_norm.cu``) against its plain version, timed beside the
-   plain version and ``F.rms_norm``.
+   registers and spills, and fail if the bf16 K2 or K3 kernels or any K4
+   kernel spill.
+3. K4 (``csrc/rms_norm.cu``): the forward against ``_rms_ref`` (fp32 and
+   bf16, d 4096, 4100 and 128, 8 to 2048 rows), timed at [8, 512, 1000,
+   2048] x 4096 bf16 beside the plain version and ``F.rms_norm``; the
+   backward (dx and dw) against ``_rms_bwd_ref`` on the same cases and
+   with w frozen, dw bit-identical over two calls, timed at [2048, 4096]
+   bf16 beside the plain version and ``F.rms_norm``'s autograd backward.
 4. K1 (``csrc/flash_fwd.cu``) against ``flash_attention_ref`` (out and
    lse) over Llama-3-8B shapes, GQA groups, head dims, offsets, ragged
    lengths, the bf16 kernel's block edges, transposed [B, S, H, D] views
@@ -41,13 +46,16 @@ no result line):
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind); then a 2-layer
-   full-width model's loss and every gradient in bf16 against the same
-   weights in fp32 on the CPU through the plain path (B=1, S=256).
+   full-width model's loss and every gradient in bf16 (K4's backward
+   included) against the same weights in fp32 on the CPU through the
+   plain path (B=1, S=256).
 
 Kernel launch counters are zeroed just before the tiny serve, the
-forward, the serve and the train paths run and read just after: K1 and K4
-must have launched on the tiny serve, forward and serve paths, and the train path must launch K1 twice per
-layer and step (forward and remat recompute), K2 and K3 once and K4 never.
+forward, the serve and the train paths run and read just after: K1 and
+K4's forward must have launched on the tiny serve, forward and serve paths
+(K4's backward never), and per layer and step the train path must launch
+K1 and, per norm, K4's forward twice (forward and remat recompute), K2, K3
+and K4's backward once, plus the final norm once each way.
 The second-to-last JSON line lists every kernel with its launches per
 path, error, times and bound; the last line is the device record.
 ``--report PATH`` also writes every phase's numbers to PATH as JSON.
@@ -106,13 +114,13 @@ def profile_window(torch, fn, iters: int = 10):
     last kernel, inside the profiled window, so busy / wall is the device's
     busy share of the same window.  Only device activity is traced (no host
     op records), which keeps the profiler's own host time small.  A window
-    in which the profiler saw no device activity is profiled once more
-    (CUPTI dropped a whole window's records once on the H100 machine);
-    raises if the second one saw none either."""
+    in which the profiler saw no device activity is profiled again, up to
+    three times in all (CUPTI dropped a whole window's records on the
+    H100 machine, twice in a row once); raises if none saw any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -128,7 +136,7 @@ def profile_window(torch, fn, iters: int = 10):
         if by_name:
             return by_name, wall_ms
         print("[profile] torch.profiler saw no device activity; profiling "
-              "the window once more", flush=True)
+              "the window again", flush=True)
     raise PhaseError("torch.profiler saw no device activity")
 
 
@@ -170,14 +178,17 @@ def within(torch, got, ref, atol: float, rtol: float):
 def ptxas_report(log: str):
     """[(kernel, registers, spilled bytes stored + loaded)] for each entry
     function in nvcc's ``-Xptxas -v`` output; a kernel template
-    ``name<T, N>`` reads as ``name<bf16|f32, N>``."""
+    ``name<T, N, ...>`` of integer or bool arguments reads as
+    ``name<bf16|f32, N, ...>``."""
     out, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                          m.group(1))
-            name = (f"{t[1]}<{'f32' if t[2] == 'f' else 'bf16'}, {t[3]}>"
+            t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)"
+                          r"((?:L[ib]\d+E)*)E", m.group(1))
+            name = (f"{t[1]}<" + ", ".join(
+                ["f32" if t[2] == "f" else "bf16"]
+                + re.findall(r"L[ib](\d+)E", t[3])) + ">"
                     if t else m.group(1))
             spill = 0
             continue
@@ -212,6 +223,10 @@ def phase_build(report):
                                "flash_bwd_dkv_kernel<bf16"))]
     check(len(spills) == 4 and not any(sp for _, sp in spills),
           f"the bf16 K2/K3 kernels spill (or were not found): {spills}")
+    # K4 holds rows in registers: a spill would put them in local memory.
+    k4 = report["ptxas"]["rms_norm"]
+    check(len(k4) > 0 and not any(sp for _, _, sp in k4),
+          f"a K4 kernel spills (or none was found): {k4}")
 
 
 def phase_rms(torch, report):
@@ -224,9 +239,10 @@ def phase_rms(torch, report):
     tol = {torch.bfloat16: (1e-6, 2.0 ** -7), torch.float32: (1e-6, 1e-5)}
     cases = [(512, 4096, torch.bfloat16), (8, 4096, torch.bfloat16),
              (1000, 4096, torch.bfloat16), (512, 4096, torch.float32),
-             (37, 4100, torch.bfloat16)]
+             (37, 4100, torch.bfloat16), (2048, 4096, torch.bfloat16),
+             (99, 128, torch.bfloat16), (99, 128, torch.float32)]
     rows_out = []
-    main = None
+    timed = {}
     for rows, d, dt in cases:
         x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
         w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
@@ -251,15 +267,129 @@ def phase_rms(torch, report):
                 ms=device_ms(torch, kern),
                 plain_ms=device_ms(torch, plain),
                 library_ms=device_ms(torch, lib),
-                bound_ms=max(nbytes / PEAK_HBM_BYTES,
-                             flops / PEAK_FP32_FLOPS) * 1e3,
-                bound_by=("bytes" if nbytes / PEAK_HBM_BYTES
-                          >= flops / PEAK_FP32_FLOPS else "operations"))
-            if rows == 512:
-                main = rec
+                **_bound(nbytes, flops))
+            timed[rows] = rec
         rows_out.append(rec)
         print("[K4] " + json.dumps(rec))
-    report["rms_norm"] = {"cases": rows_out, "main": main}
+    bwd = _phase_rms_bwd(torch, norms, F, g, eps)
+    report["rms_norm"] = {"cases": rows_out, "main": timed[512],
+                          "train_shape": timed[2048], "bwd": bwd}
+
+
+def _bound(nbytes: float, flops: float):
+    """The least time of a function that moves ``nbytes`` and does
+    ``flops`` fp32 operations on the card."""
+    by_bytes, by_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "mbytes": nbytes / 1e6}
+
+
+def _phase_rms_bwd(torch, norms, F, g, eps):
+    """K4's backward against ``_rms_bwd_ref`` on the same inputs, dw
+    bit-identical over two calls, then timed at the training shape
+    [2048, 4096] bf16 beside the plain version and ``F.rms_norm``'s
+    autograd backward.
+
+    Tolerance: both compute in fp32 and round once; they differ in the
+    order of the row sums (sum x^2 and sum g*x, relative error ~1e-7 on
+    the card) and of dw's sum over rows, so per element
+    |got - ref| <= rtol |ref| + 1e-5 * m + 1e-6, where m is the size of
+    what was summed: |r g| + |x| r^3 mean(|g x|) for dx and
+    sum_rows |dy x r| for dw.  rtol is one bf16 ulp (2^-7: both sides
+    may round to neighbours) or 1e-5 in fp32."""
+    rtol = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+    cases = [(2048, 4096, torch.bfloat16, True),
+             (2048, 4096, torch.bfloat16, False),  # w frozen: no dw
+             (512, 4096, torch.float32, True), (8, 4096, torch.bfloat16, True),
+             (1000, 4096, torch.bfloat16, True),
+             (37, 4100, torch.bfloat16, True), (37, 4100, torch.float32, True),
+             (99, 128, torch.bfloat16, True), (99, 128, torch.float32, True)]
+    out = []
+    main = None
+    for rows, d, dt, need_dw in cases:
+        x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+        dy = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+        dx, dw = norms.rms_norm_bwd(x, w, dy, eps, need_dw=need_dw)
+        torch.cuda.synchronize()
+        rdx, rdw = norms._rms_bwd_ref(x, w, dy, eps)
+        xf, dyf = x.float(), dy.float()
+        gf = dyf * w.float()
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        m_dx = (r * gf).abs() + xf.abs() * r ** 3 * (gf * xf).abs().mean(
+            -1, keepdim=True)
+        m_dw = (dyf * xf * r).abs().sum(0)
+        name = f"K4 backward [{rows}, {d}] {dt}" + ("" if need_dw
+                                                    else " (w frozen)")
+        rec = {"shape": [rows, d], "dtype": str(dt), "dw": need_dw,
+               "rtol": rtol[dt]}
+        for what, got, ref, m in (("dx", dx, rdx, m_dx), ("dw", dw, rdw, m_dw)):
+            if what == "dw" and not need_dw:
+                check(dw is None, f"{name}: dw computed though not asked")
+                continue
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name}: {what} is not finite")
+            diff = (got.float() - ref.float()).abs()
+            lim = rtol[dt] * ref.float().abs() + 1e-5 * m + 1e-6
+            rec[f"{what}_max_abs_err"] = float(diff.max())
+            rec[f"{what}_worst_share_of_tol"] = float((diff / lim).max())
+            check(bool((diff <= lim).all()),
+                  f"{name}: {what} max err {float(diff.max())}, "
+                  f"{float((diff / lim).max()):.3g} of its tolerance")
+        rec["max_abs_err"] = max(rec["dx_max_abs_err"],
+                                 rec.get("dw_max_abs_err", 0.0))
+        if need_dw:
+            dx2, dw2 = norms.rms_norm_bwd(x, w, dy, eps)
+            check(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+                  f"{name}: two calls differ (dw must be bit-identical)")
+            rec["bit_identical"] = True
+            aligned = int(d % (16 // x.element_size()) == 0)
+            rec["partial_rows"] = norms._kernels()[2](
+                norms._DTYPES[dt], rows, d, aligned)
+        if (rows, d, dt, need_dw) == (2048, 4096, torch.bfloat16, True):
+            rec.update(_time_rms_bwd(torch, norms, F, x, w, dy, eps))
+            main = rec
+        out.append(rec)
+        print("[K4 bwd] " + json.dumps(rec))
+    return {"cases": out, "main": main}
+
+
+def _time_rms_bwd(torch, norms, F, x, w, dy, eps):
+    rows, d = x.shape
+    kern = lambda: norms.rms_norm_bwd(x, w, dy, eps)  # noqa: E731
+    plain = lambda: norms._rms_bwd_ref(x, w, dy, eps)  # noqa: E731
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+
+    def lib_fwd():
+        return F.rms_norm(xr, (d,), wr, eps)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (xr, wr), dy)
+
+    def k4_fwd_bwd():
+        torch.autograd.grad(norms.rms_norm(xr, wr, eps), (xr, wr), dy)
+
+    lib_fwd_bwd_ms = device_ms(torch, lib_fwd_bwd)
+    by_name, _ = profile_window(torch, kern)
+    # Bytes: x and dy read, dx written ([rows, d] each), w read and dw
+    # written; about 12 flops an element (two sums, dx, dw).
+    nbytes = 3 * rows * d * x.element_size() + 2 * d * w.element_size()
+    return {
+        "call_ms": time_ms(torch, kern), "ms": device_ms(torch, kern),
+        # The row kernel (dx and the partial dw rows) and the dw sum.
+        "row_kernel_ms": sum(t for n, t in by_name.items()
+                             if "rms_norm_bwd_kernel" in n),
+        "dw_kernel_ms": sum(t for n, t in by_name.items()
+                            if "rms_norm_dw_kernel" in n),
+        "plain_call_ms": time_ms(torch, plain),
+        "plain_ms": device_ms(torch, plain, iters=3),
+        # F.rms_norm's backward: its forward and backward under autograd
+        # less its forward.
+        "library_ms": lib_fwd_bwd_ms - device_ms(torch, lib_fwd),
+        "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+        "k4_fwd_bwd_ms": device_ms(torch, k4_fwd_bwd),
+        **_bound(nbytes, 12 * rows * d)}
 
 
 def _attn_inputs(torch, g, B, H, Hkv, Sq, Sk, D, dt):
@@ -660,7 +790,8 @@ def _counters():
     return {"flash_fwd": attention.flash_attention_fwd,
             "flash_bwd_dq": attention.flash_attention_bwd_dq,
             "flash_bwd_dkv": attention.flash_attention_bwd_dkv,
-            "rms_norm": norms.rms_norm_cuda}
+            "rms_norm": norms.rms_norm_cuda,
+            "rms_norm_bwd": norms.rms_norm_bwd}
 
 
 def _reset_counts():
@@ -716,8 +847,10 @@ def phase_tiny_serve(torch, report, seed: int):
         counts = _read_counts()
         check(all(len(t) == new for t in got),
               f"tiny serve ({name}) lost tokens")
-        check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
-              f"tiny serve ({name}) did not launch K1 and K4: {counts}")
+        check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
+              and counts["rms_norm_bwd"] == 0,
+              f"tiny serve ({name}) did not launch K1 and K4's forward "
+              f"(and K4's backward never): {counts}")
         rec = {"head_dim": cfg.head_dim, "requests": len(prompts),
                "launches": counts}
         if dt == torch.float32:
@@ -802,8 +935,10 @@ def _forward(torch, report, seed: int):
     print(f"[forward] Llama-3-8B {n_params / 1e9:.2f}B params "
           f"({cfg.n_layers} layers, bf16) init {init_s:.1f} s; llama_apply "
           f"B=1 S=2048 wall {wall * 1e3:.1f} ms; launches {counts}")
-    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
-          f"forward path did not launch both kernels: {counts}")
+    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
+          and counts["rms_norm_bwd"] == 0,
+          f"forward path did not launch K1 and K4's forward (and K4's "
+          f"backward never): {counts}")
     del logits
 
     # Two layers at full width against the same weights in fp32 on the CPU
@@ -915,8 +1050,10 @@ def phase_serve(torch, report, cfg, params, seed: int):
         stats = engine.stats()
     finally:
         engine.shutdown()
-    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0,
-          f"serve path did not launch both kernels: {counts}")
+    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
+          and counts["rms_norm_bwd"] == 0,
+          f"serve path did not launch K1 and K4's forward (and K4's "
+          f"backward never): {counts}")
     ttfts = sorted(r[1] for r in results)
     total = sum(len(r[0]) for r in results)
     ref = generate(cfg, params, prompts[check_idx][None],
@@ -1002,7 +1139,20 @@ _STEP_KINDS = (
                           "flash_bwd_dkv_fma_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("AdamW (fused)", ("multi_tensor_apply", "fused_adam")),
+    ("K4 rms_norm (forward and backward)", ("rms_norm_kernel",
+                                            "rms_norm_bwd_kernel",
+                                            "rms_norm_dw_kernel")),
 )
+
+
+def _train_launches(L: int, steps: int):
+    """Launches of each kernel in ``steps`` train steps of an L-layer model
+    with remat full: a block's forward (attention, two norms) runs twice
+    (forward and recompute), its backward once; the final norm once each
+    way."""
+    return {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "rms_norm": (4 * L + 1) * steps,
+            "rms_norm_bwd": (2 * L + 1) * steps}
 
 
 def phase_train(torch, report, seed: int, steps: int = 5):
@@ -1074,11 +1224,10 @@ def phase_train(torch, report, seed: int, steps: int = 5):
           f"non-finite loss or grad norm: {losses} {norms}")
     check(losses[-1] < losses[0],
           f"the loss did not fall: {losses[0]} -> {losses[-1]}")
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "rms_norm": 0}
-    check(counts == want, f"train launches {counts}, expected {want} "
-                          f"(K1 forward + remat recompute, K2/K3 once per "
-                          f"layer, K4 none under autograd)")
+    check(counts == _train_launches(L, steps),
+          f"train launches {counts}, expected {_train_launches(L, steps)} "
+          f"(K1 and K4's forward in the forward and the remat recompute, "
+          f"K2, K3 and K4's backward once, the final norm once each way)")
     report["train"] = {
         "params_b": n_params / 1e9, "layers": L, "batch": B, "seq": S,
         "steps": steps, "step_ms": step_s * 1e3,
@@ -1092,8 +1241,8 @@ def phase_train(torch, report, seed: int, steps: int = 5):
 
 def phase_train_check(torch, report, cfg, tokens, seed: int):
     """Two layers at full width: loss and every gradient in bf16 on the
-    card against the same weights in fp32 on the CPU through the plain
-    path (the kernels' plain versions), B=1, S=256."""
+    card (K1-K4, K4 both ways) against the same weights in fp32 on the CPU
+    through the plain path (the kernels' plain versions), B=1, S=256."""
     from ray_tpu_torch.models.llama import Llama, llama_init, llama_loss
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
@@ -1101,9 +1250,14 @@ def phase_train_check(torch, report, cfg, tokens, seed: int):
                         .manual_seed(seed + 3), trainable=True)
     tok = tokens[:, :256]
     tgt = torch.roll(tok, -1, dims=1)
+    _reset_counts()
     loss = llama_loss(cfg2, params, tok, tgt)
     loss.backward()
     loss = float(loss.detach())
+    counts = _read_counts()
+    check(counts == _train_launches(2, 1),
+          f"train check launches {counts}, expected "
+          f"{_train_launches(2, 1)}")
     got = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
     cpu = Llama(dataclasses.replace(cfg2, dtype=torch.float32, remat=False),
                 torch.device("cpu"))
@@ -1137,7 +1291,8 @@ def phase_train_check(torch, report, cfg, tokens, seed: int):
           f"{loss_rel}, gradient rel {dict(worst)}")
     report["train_check"] = {"loss": loss, "ref_loss": ref,
                              "loss_rel": loss_rel, "grad_rel": rel,
-                             "grad_tol": grad_tol, "loss_tol": loss_tol}
+                             "grad_tol": grad_tol, "loss_tol": loss_tol,
+                             "launches": counts}
 
 
 def main(argv=None) -> int:
@@ -1194,7 +1349,10 @@ def main(argv=None) -> int:
             ("flash_bwd_dkv", "ray_tpu_torch/csrc/flash_bwd.cu",
              "ray_tpu/ops/attention.py:214", bwd["flash_bwd_dkv"]),
             ("rms_norm", "ray_tpu_torch/csrc/rms_norm.cu",
-             "ray_tpu/ops/norms.py:20", report["rms_norm"]["main"])):
+             "ray_tpu/ops/norms.py:20", report["rms_norm"]["main"]),
+            # No Pallas kernel: XLA's fusion of jax.vjp of rms_norm.
+            ("rms_norm_bwd", "ray_tpu_torch/csrc/rms_norm.cu",
+             "ray_tpu/ops/norms.py:56", report["rms_norm"]["bwd"]["main"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

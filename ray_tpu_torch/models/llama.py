@@ -11,7 +11,7 @@ compare like with like.  Parameters are frozen unless built with
 checkpointed (``remat_policy="full"``), so its forward, kernel K1 included,
 runs again in the backward.  Attention goes through ``flash_attention``
 (kernels K1 and, for gradients, K2/K3 on the card) and every norm through
-``rms_norm`` (kernel K4 on the card when no gradient is needed); the
+``rms_norm`` (kernel K4 on the card, and for gradients K4's backward); the
 projections and the MLP stay plain ``torch.matmul``, as the JAX package
 left them to XLA.  Ring attention (``sp_ring``) is not ported yet.
 """
