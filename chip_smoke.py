@@ -19,9 +19,11 @@ no result line):
    bf16 beside the plain version and ``F.rms_norm``'s autograd backward.
 4. K1 (``csrc/flash_fwd.cu``) against ``flash_attention_ref`` (out and
    lse) over Llama-3-8B shapes, GQA groups, head dims, offsets, ragged
-   lengths, the bf16 kernel's block edges, transposed [B, S, H, D] views
-   and both dtypes (head_dim 32 in both), lse bit-equal on rows that see
-   no key; timed beside the plain version and SDPA.
+   lengths, the bf16 kernel's block edges, transposed [B, S, H, D] views,
+   the cached-prefix prefill's suffix buckets at q_offset = prefix_len over
+   the gathered page table, and both dtypes (head_dim 32 in both), lse
+   bit-equal on rows that see no key; timed beside the plain version and
+   SDPA.
 5. K2 and K3 (``csrc/flash_bwd.cu``) against ``flash_attention_bwd_ref``
    (dQ, dK, dV) over K1's first cases and 32/8 heads (head_dim 32 in both
    dtypes), Sq > Sk, and fed by K1's own (out, lse) at negative offsets;
@@ -40,7 +42,22 @@ no result line):
    once, 4 admitted while those decode); checks counts, page balance and
    greedy agreement with ``generate``; then a warm 8-request window under
    the profiler: wall, prefill and device busy time of that one window.
-9. train: the serving model is freed; ``make_train_step(llama_loss)``
+9. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
+   The tiny model in fp32 (prefix cache on, 2 adapters): a 48-token
+   shared prefix with six tails and a fork inside its second page, over
+   the base model and both adapters, served twice; greedy tokens equal to
+   the same engine's on the CPU, >= 5 prefix hits, one decode signature,
+   the free list balanced after ``clear_prefix_cache()``.  (b) Full
+   Llama-3-8B in bf16 (4 adapter slots, 2 adapters from ``random_lora``):
+   a 384-token system prompt cached under each, then 12 requests (tails
+   of 16-100 tokens, one forking at token 200) x 32 greedy tokens at
+   once, every one a prefix hit whose suffix prefill launches K1 and K4;
+   no decode signature added; the designated base and adapter requests'
+   first tokens equal to the same prompts served cold; TTFT of each
+   prompt served alone from the cache and cold.  K1 is timed at a suffix
+   shape (Sq 64, Sk 576, q_offset 384) beside the plain version and SDPA
+   with an explicit boolean mask.
+10. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
@@ -51,9 +68,11 @@ no result line):
    plain path (B=1, S=256).
 
 Kernel launch counters are zeroed just before the tiny serve, the
-forward, the serve and the train paths run and read just after: K1 and
-K4's forward must have launched on the tiny serve, forward and serve paths
-(K4's backward never), and per layer and step the train path must launch
+forward, the serve, the multitenant and the train paths run and read just
+after: K1 and K4's forward must have launched on the tiny serve, forward
+and serve paths (K4's backward never), on the multitenant path K1 once a
+layer per prefill and K4's forward once a norm per program call, and per
+layer and step the train path must launch
 K1 and, per norm, K4's forward twice (forward and remat recompute), K2, K3
 and K4's backward once, plus the final norm once each way.
 The second-to-last JSON line lists every kernel with its launches per
@@ -145,6 +164,22 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     call."""
     fn()
     return sum(profile_window(torch, fn, iters)[0].values())
+
+
+def backward_ms(torch, fwd_bwd, fwd, attempts: int = 3):
+    """Device time of a backward: ``fwd_bwd`` (forward and backward)
+    less ``fwd`` (the forward alone), as ``(ms, how)``.  CUPTI has dropped
+    part of a window's records on the H100 machine, which once made the
+    difference negative: a difference that is not positive is measured
+    again, up to ``attempts`` times, and then taken from CUDA events over
+    back-to-back calls instead of the profiler."""
+    for _ in range(attempts):
+        ms = device_ms(torch, fwd_bwd) - device_ms(torch, fwd)
+        if ms > 0:
+            return ms, "profiler"
+        print(f"[profile] forward and backward less the forward read "
+              f"{ms:.4f} ms; measuring again", flush=True)
+    return time_ms(torch, fwd_bwd) - time_ms(torch, fwd), "cuda events"
 
 
 def card_line() -> str:
@@ -370,7 +405,7 @@ def _time_rms_bwd(torch, norms, F, x, w, dy, eps):
     def k4_fwd_bwd():
         torch.autograd.grad(norms.rms_norm(xr, wr, eps), (xr, wr), dy)
 
-    lib_fwd_bwd_ms = device_ms(torch, lib_fwd_bwd)
+    library_ms, library_timing = backward_ms(torch, lib_fwd_bwd, lib_fwd)
     by_name, _ = profile_window(torch, kern)
     # Bytes: x and dy read, dx written ([rows, d] each), w read and dw
     # written; about 12 flops an element (two sums, dx, dw).
@@ -386,8 +421,8 @@ def _time_rms_bwd(torch, norms, F, x, w, dy, eps):
         "plain_ms": device_ms(torch, plain, iters=3),
         # F.rms_norm's backward: its forward and backward under autograd
         # less its forward.
-        "library_ms": lib_fwd_bwd_ms - device_ms(torch, lib_fwd),
-        "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+        "library_ms": library_ms, "library_timing": library_timing,
+        "library_fwd_bwd_ms": device_ms(torch, lib_fwd_bwd),
         "k4_fwd_bwd_ms": device_ms(torch, k4_fwd_bwd),
         **_bound(nbytes, 12 * rows * d)}
 
@@ -440,6 +475,18 @@ def _flash_cases(torch):
         for S, off in ((200, 0), (1000, 0), (1000, -63)):
             cases.append(dict(B=2, H=32, Hkv=8, Sq=S, Sk=S, D=D, causal=True,
                               off=off, dt=torch.bfloat16, bshd=True))
+    # The cached-prefix prefill: a suffix bucket at q_offset = prefix_len
+    # (mid-page too) over the whole gathered table (Sk = MAXP x 16), the
+    # bucket running past the table's end, with q as the model's
+    # [S, H, D] view.
+    for Sq, off in ((64, 384), (16, 17), (512, 200), (128, 463), (32, 560)):
+        for bshd in (False, True):
+            cases.append(dict(B=1, H=32, Hkv=8, Sq=Sq, Sk=576, D=128,
+                              causal=True, off=off, dt=torch.bfloat16,
+                              bshd=bshd))
+    for Sq, off in ((16, 48), (64, 20), (128, 100)):
+        cases.append(dict(B=1, H=4, Hkv=2, Sq=Sq, Sk=144, D=32, causal=True,
+                          off=off, dt=torch.float32))
     return cases
 
 
@@ -734,7 +781,7 @@ def _time_bwd(torch, att, F, g, S):
         lib_route = "K/V repeated to H heads"
         kr, vr = (att._repeat_kv(t, H).detach().requires_grad_(True)
                   for t in (k, v))
-    library_ms = device_ms(torch, sdpa_fwd_bwd) - device_ms(torch, sdpa_fwd)
+    library_ms, library_timing = backward_ms(torch, sdpa_fwd_bwd, sdpa_fwd)
     library_call_ms = time_ms(torch, sdpa_fwd_bwd)
     plain = lambda: att.flash_attention_bwd_ref(  # noqa: E731
         q, k, v, lse, delta, do)
@@ -771,7 +818,7 @@ def _time_bwd(torch, att, F, g, S):
             # together: their times are the pair's.
             "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
             "library_ms": library_ms, "library_call_ms": library_call_ms,
-            "library_route": lib_route,
+            "library_route": lib_route, "library_timing": library_timing,
             "bound_ms": max(flops / PEAK_BF16_FLOPS,
                             nbytes / PEAK_HBM_BYTES) * 1e3,
             "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
@@ -1131,6 +1178,349 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
                                "top_kernels_ms": dict(top)}
 
 
+def _serve_all(engine, jobs, new: int):
+    """Submit ``jobs`` ([(prompt, adapter)]) at once, each consumed on its
+    own thread; returns [(tokens, ttft_s)] in job order and raises on any
+    stream error or a stream that does not finish."""
+    results = [None] * len(jobs)
+    errors = []
+
+    def consume(i, stream):
+        try:
+            results[i] = (list(stream), stream.ttft_s)
+        except Exception as e:  # noqa: BLE001: reported below
+            errors.append((i, repr(e)))
+
+    threads = []
+    for i, (prompt, adapter) in enumerate(jobs):
+        s = engine.submit(prompt, max_new_tokens=new, adapter=adapter)
+        threads.append(threading.Thread(target=consume, args=(i, s)))
+        threads[-1].start()
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "a stream did not finish in 600 s")
+    check(not errors, f"stream errors: {errors}")
+    return results
+
+
+def _balanced(engine) -> bool:
+    """Clear the prefix cache; True once every page is free again."""
+    deadline = time.time() + 10
+    while time.time() < deadline:
+        engine.clear_prefix_cache()
+        alloc = engine.allocator
+        if alloc.free_count == alloc.total and alloc.shared_count == 0:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _program_calls(paged):
+    """Calls of the three programs that launch kernels."""
+    return {n: paged.call_count(n)
+            for n in ("decode", "prefill", "prefill_prefix")}
+
+
+def phase_multitenant(torch, report, cfg, params, seed: int):
+    """The multi-tenant plane on the card: the radix prefix cache (suffix
+    prefill through K1 at ``q_offset = prefix_len``, copy-on-write on a
+    mid-page divergence) and the LoRA adapter pool, first on the tiny
+    model in fp32 against the same engine on the CPU, then on full
+    Llama-3-8B in bf16; and K1 timed at a suffix-prefill shape."""
+    out = {"tiny": _multitenant_tiny(torch, seed)}
+    out["llama3_8b"] = _multitenant_8b(torch, cfg, params, seed)
+    out["k1_suffix"] = _time_k1_suffix(torch)
+    out["launches"] = {
+        k: out["tiny"]["launches"][k] + out["llama3_8b"]["launches"][k]
+        for k in out["tiny"]["launches"]}
+    report["multitenant"] = out
+
+
+def _multitenant_tiny(torch, seed: int):
+    """(a) The tiny model in fp32, prefix cache on, two adapters and the
+    base model: a 48-token shared prefix with six tails and one fork that
+    diverges inside its second page, served on the card and on the CPU by
+    the same script; the greedy tokens must be equal."""
+    from ray_tpu_torch.models import paged
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
+    from ray_tpu_torch.serve.engine import (EngineConfig, InferenceEngine,
+                                            random_lora)
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = llama_init(cfg, torch.Generator(device="cuda")
+                        .manual_seed(seed + 5))
+    cpu_params = Llama(cfg, torch.device("cpu"))
+    cpu_params.load_state_dict(params.state_dict())
+    ecfg = EngineConfig(batch_slots=4, page_size=16, max_prompt_len=128,
+                        max_new_tokens_cap=16, max_adapters=2, lora_rank=4)
+    loras = {f"t{s}": random_lora(cfg, seed + s, rank=4, device="cpu")
+             for s in (1, 2)}
+    rng = np.random.default_rng(seed + 5)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    tails = [rng.integers(0, cfg.vocab_size, n) for n in (3, 9, 14, 5, 11, 7)]
+    names = [None, "t1", "t2", None, "t1", "t2"]
+    jobs = [(np.concatenate([prefix, t]).astype(np.int32), a)
+            for t, a in zip(tails, names)]
+    # The fork shares 20 tokens: a copy-on-write inside the second page.
+    jobs.append((np.concatenate([prefix[:20], rng.integers(
+        0, cfg.vocab_size, 30)]).astype(np.int32), None))
+    new = 16
+
+    def script(engine):
+        """Primers (one per adapter: cold), then the other four (all hit),
+        then all seven again (all hit): the cache's content, and so each
+        request's path, does not depend on timing."""
+        for name, lora in loras.items():
+            engine.register_adapter(name, lora)
+        got = _serve_all(engine, jobs[:3], new)
+        got += _serve_all(engine, jobs[3:], new)
+        again = _serve_all(engine, jobs, new)
+        stats = engine.stats()
+        return ([t for t, _ in got], [t for t, _ in again], stats,
+                _balanced(engine))
+
+    traces0 = paged.trace_count("decode")
+    calls0 = _program_calls(paged)
+    _reset_counts()
+    engine = InferenceEngine(cfg, params, ecfg, seed=seed)
+    try:
+        got, again, stats, balanced = script(engine)
+    finally:
+        engine.shutdown()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    calls = {k: v - calls0[k] for k, v in _program_calls(paged).items()}
+    decode_traces = paged.trace_count("decode") - traces0
+    engine = InferenceEngine(cfg, cpu_params, ecfg, seed=seed, device="cpu")
+    try:
+        want, want_again, _, _ = script(engine)
+    finally:
+        engine.shutdown()
+    same = sum(int(a == b) for g, w in zip(got + again, want + want_again)
+               for a, b in zip(g, w))
+    hits = stats["prefix_hits"]
+    L = cfg.n_layers
+    print(f"[multitenant] tiny fp32: {len(jobs)} requests (48-token shared "
+          f"prefix, a fork inside page 2, base + 2 adapters) twice, "
+          f"{same}/{2 * len(jobs) * new} tokens equal to the CPU engine's, "
+          f"second round equal to the first: {again == got}; "
+          f"prefix hits {hits}, program calls {calls}, decode traces "
+          f"{decode_traces}, free list balanced {balanced}; launches "
+          f"{counts}")
+    check(got == want and again == want_again,
+          f"tiny multitenant on the card differs from the CPU: {got} "
+          f"{again} vs {want} {want_again}")
+    check(hits >= 5 and calls["prefill_prefix"] > 0,
+          f"tiny multitenant: {hits} prefix hits, calls {calls}")
+    check(decode_traces == 1, f"tiny multitenant: {decode_traces} decode "
+                              f"signatures, expected 1")
+    check(balanced, "tiny multitenant: pages leaked after "
+                    "clear_prefix_cache()")
+    check(counts["flash_fwd"] == L * (calls["prefill"]
+                                      + calls["prefill_prefix"])
+          and counts["rms_norm"] == (2 * L + 1) * sum(calls.values())
+          and counts["rms_norm_bwd"] == 0,
+          f"tiny multitenant launches {counts} do not match program calls "
+          f"{calls}")
+    return {"requests": 2 * len(jobs), "tokens_equal": same,
+            "second_round_equal": again == got,
+            "prefix_hits": hits, "program_calls": calls,
+            "decode_traces": decode_traces, "launches": counts}
+
+
+def _multitenant_8b(torch, cfg, params, seed: int):
+    """(b) Full Llama-3-8B in bf16: a 384-token system prompt cached for
+    the base model and two adapters, then 12 requests (tails of 16-100
+    tokens, one diverging mid-page) x 32 greedy tokens served at once, all
+    from the cache; then each prompt served alone from the cache and cold
+    (cache cleared) for TTFT and the first tokens."""
+    from ray_tpu_torch.models import paged
+    from ray_tpu_torch.models.llama import llama_hidden
+    from ray_tpu_torch.serve.engine import (EngineConfig, InferenceEngine,
+                                            random_lora)
+
+    ecfg = EngineConfig(batch_slots=8, page_size=16, max_prompt_len=512,
+                        max_new_tokens_cap=64, max_adapters=4, lora_rank=8)
+    rng = np.random.default_rng(seed + 6)
+    system = rng.integers(0, cfg.vocab_size, 384).astype(np.int32)
+    names = [None, "a1", "a2"]
+    tail_lens = (16, 40, 64, 100, 24, 77, 50, 90, 33, 58, 81, 20)
+    jobs = []
+    for i, n in enumerate(tail_lens):
+        head = system[:200] if i == 7 else system  # 7: mid-page fork
+        jobs.append((np.concatenate([head, rng.integers(
+            0, cfg.vocab_size, n)]).astype(np.int32), names[i % 3]))
+    base_idx, adapter_idx = 3, 4  # designated: base and adapter "a2"
+    new = 32
+    loras = {name: random_lora(cfg, seed + s, rank=8)
+             for s, name in ((1, "a1"), (2, "a2"))}
+    engine = InferenceEngine(cfg, params, ecfg, seed=seed)
+    try:
+        for name, lora in loras.items():
+            engine.register_adapter(name, lora)
+        engine.warmup()
+        decode_traces0 = paged.trace_count("decode")
+        # The system prompt cached under each adapter, as earlier traffic
+        # of a shared deployment leaves it.
+        _serve_all(engine, [(system, a) for a in names], 1)
+        hits0 = engine.prefix_hits
+        calls0 = _program_calls(paged)
+        _reset_counts()
+        t0 = time.perf_counter()
+        mix = _serve_all(engine, jobs, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        calls = {k: v - calls0[k] for k, v in _program_calls(paged).items()}
+        hits = engine.prefix_hits - hits0
+        decode_traces = paged.trace_count("decode") - decode_traces0
+        balanced = _balanced(engine)
+        # Each prompt alone: from the cache (system prompt primed), then
+        # cold (cache cleared).
+        alone = []
+        for prompt, adapter in jobs:
+            engine.clear_prefix_cache()
+            _serve_all(engine, [(system, adapter)], 1)
+            (hit_toks, hit_ttft), = _serve_all(engine, [(prompt, adapter)],
+                                               1)
+            engine.clear_prefix_cache()
+            (cold_toks, cold_ttft), = _serve_all(engine, [(prompt, adapter)],
+                                                 new)
+            alone.append((hit_toks[0], hit_ttft, cold_toks, cold_ttft))
+        # One base request from the cache and cold under the profiler:
+        # where its TTFT goes.
+        prompt = jobs[base_idx][0]
+        engine.clear_prefix_cache()
+        _serve_all(engine, [(system, None)], 1)
+        profiled = {}
+        for how in ("cache", "cold"):
+            kernels, wall_ms = profile_window(
+                torch, lambda: _serve_all(engine, [(prompt, None)], 1),
+                iters=1)
+            profiled[how] = {"wall_ms": wall_ms,
+                             "device_busy_ms": sum(kernels.values())}
+            engine.clear_prefix_cache()
+        check(_balanced(engine), "8B multitenant: pages leaked after the "
+                                 "hit/cold runs")
+        stats = engine.stats()
+    finally:
+        engine.shutdown()
+    # The cold forward's top-2 logit margin at each prompt's first token:
+    # how near a tie a first-token flip between the two paths sits.
+    margins = []
+    with torch.no_grad():
+        for prompt, adapter in jobs:
+            h = llama_hidden(cfg, params, torch.from_numpy(prompt).long()
+                             [None].cuda(), loras.get(adapter))
+            top = (h[0, -1] @ params.lm_head).float().topk(2).values
+            margins.append(float(top[0] - top[1]))
+    L = cfg.n_layers
+    check(all(len(t) == new for t, _ in mix), "8B multitenant lost tokens")
+    check(hits >= 10 and hits == len(jobs),
+          f"8B multitenant: {hits} prefix hits of {len(jobs)}")
+    check(calls["prefill"] == 0 and calls["prefill_prefix"] == len(jobs)
+          and counts["flash_fwd"] == L * calls["prefill_prefix"]
+          and counts["rms_norm"] == (2 * L + 1) * sum(calls.values())
+          and counts["rms_norm_bwd"] == 0,
+          f"8B multitenant: program calls {calls}, launches {counts}: K1 "
+          f"and K4 must run on every prefill_prefix call")
+    check(decode_traces == 0, f"8B multitenant: the mix added "
+                              f"{decode_traces} decode signatures")
+    check(balanced, "8B multitenant: pages leaked after "
+                    "clear_prefix_cache()")
+    agree = [sum(int(a == b) for a, b in zip(t, cold[2]))
+             for (t, _), cold in zip(mix, alone)]
+    first_mix = [int(t[0] == cold[2][0]) for (t, _), cold in zip(mix, alone)]
+    first_alone = [int(h == c[0]) for h, _, c, _ in alone]
+    ttft_hit = sorted(h for _, h, _, _ in alone)
+    ttft_cold = sorted(c for _, _, _, c in alone)
+    ttft_mix = sorted(t for _, t in mix)
+    p50 = lambda v: v[len(v) // 2] * 1e3  # noqa: E731
+    print(f"[multitenant] Llama-3-8B bf16: 12 requests x {new} tokens over "
+          f"base + 2 adapters on a 384-token cached system prompt (one fork "
+          f"at token 200): wall {wall:.2f} s, prefix hits {hits}, program "
+          f"calls {calls}, decode signatures added {decode_traces}, free "
+          f"list balanced {balanced}; launches {counts}")
+    print(f"[multitenant] served alone, TTFT p50 from the cache "
+          f"{p50(ttft_hit):.1f} ms vs cold {p50(ttft_cold):.1f} ms (the mix, "
+          f"12 at once: p50 {p50(ttft_mix):.1f} ms); first tokens equal to "
+          f"cold: mix {sum(first_mix)}/12, alone {sum(first_alone)}/12; mix "
+          f"tokens equal to cold, per request: {agree}; the cold forward's "
+          f"top-2 logit margins at the first token: "
+          f"{[round(m, 4) for m in margins]}")
+    print(f"[multitenant] one base request profiled (wall / device busy, "
+          f"ms): from the cache {profiled['cache']['wall_ms']:.1f} / "
+          f"{profiled['cache']['device_busy_ms']:.1f}, cold "
+          f"{profiled['cold']['wall_ms']:.1f} / "
+          f"{profiled['cold']['device_busy_ms']:.1f}")
+    for what, i in (("base", base_idx), ("adapter a2", adapter_idx)):
+        check(first_mix[i] == 1,
+              f"8B multitenant: the designated {what} request's first "
+              f"token from the cache {mix[i][0][0]} differs from the cold "
+              f"serving's {alone[i][2][0]}")
+    return {"requests": len(jobs), "wall_s": wall, "prefix_hits": hits,
+            "program_calls": calls, "decode_traces_added": decode_traces,
+            "launches": counts, "ttft_hit_p50_ms": p50(ttft_hit),
+            "ttft_cold_p50_ms": p50(ttft_cold),
+            "ttft_mix_p50_ms": p50(ttft_mix),
+            "ttft_hit_ms": [t * 1e3 for t in ttft_hit],
+            "ttft_cold_ms": [t * 1e3 for t in ttft_cold],
+            "first_token_equal_mix": first_mix,
+            "first_token_equal_alone": first_alone,
+            "tokens_equal_to_cold": agree,
+            "first_token_margins": margins, "profiled": profiled,
+            "prefix_cache": stats["prefix_cache"],
+            "adapters": stats["adapters"]}
+
+
+def _time_k1_suffix(torch):
+    """K1 at one suffix-prefill shape of the 8B serve config: a 64-row
+    suffix bucket at q_offset 384 over the gathered table (Sk = MAXP x 16
+    = 576), beside the plain version and SDPA.  SDPA's ``is_causal``
+    aligns the mask top-left when Sq != Sk, so SDPA takes an explicit
+    boolean mask."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as att
+
+    B, H, Hkv, Sq, Sk, D, off = 1, 32, 8, 64, 576, 128, 384
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = _attn_inputs(torch, g, B, H, Hkv, Sq, Sk, D, torch.bfloat16)
+    out, _ = att.flash_attention_fwd(q, k, v, causal=True, q_offset=off)
+    ref, _ = att.flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    mask = (torch.arange(Sk, device="cuda")[None, :]
+            <= torch.arange(Sq, device="cuda")[:, None] + off)
+    lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    kern = lambda: att.flash_attention_fwd(  # noqa: E731
+        q, k, v, causal=True, q_offset=off)
+    plain = lambda: att.flash_attention_ref(  # noqa: E731
+        q, k, v, causal=True, q_offset=off)
+    # The visited work: row r sees keys 0 .. off + r; keys past the last
+    # row's position are never read.
+    pairs = Sq * (off + 1) + Sq * (Sq - 1) // 2
+    keys = min(Sk, off + Sq)
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * keys * D) * 2 + B * H * Sq * 4
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    rec = {
+        "shape": dict(B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, q_offset=off,
+                      causal=True, dtype="bfloat16"),
+        "max_abs_err": float((out.float() - ref.float()).abs().max()),
+        "sdpa_max_abs_diff": float((lib_fn().float() - ref.float())
+                                   .abs().max()),
+        "call_ms": time_ms(torch, kern),
+        "ms": device_ms(torch, kern),
+        "plain_ms": device_ms(torch, plain, iters=3),
+        "library_ms": device_ms(torch, lib_fn),
+        "library": "SDPA, explicit boolean mask, enable_gqa",
+        "bound_ms": max(by_ops, by_bytes) * 1e3,
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    print("[K1 suffix] " + json.dumps(rec))
+    return rec
+
+
 # Kernel-name patterns of a train step's device time, by kind.
 _STEP_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_fma_kernel")),
@@ -1328,6 +1718,7 @@ def main(argv=None) -> int:
     cfg, params = phase_forward(torch, report, args.seed)
     phase_serve(torch, report, cfg, params, args.seed)
     phase_serve_profile(torch, report, cfg, params, args.seed)
+    phase_multitenant(torch, report, cfg, params, args.seed)
     del params  # the serving model makes room for training
     gc.collect()
     torch.cuda.empty_cache()
@@ -1338,7 +1729,8 @@ def main(argv=None) -> int:
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
-             for path in ("tiny_serve", "forward", "serve", "train")}
+             for path in ("tiny_serve", "forward", "serve", "multitenant",
+                          "train")}
     bwd = report["flash_bwd"]["main"]
     kernels = []
     for name, src, replaces, main in (
@@ -1365,6 +1757,10 @@ def main(argv=None) -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             # Host per-call time (CUDA events over back-to-back calls).
             "call_ms": main["call_ms"]})
+    suffix = report["multitenant"]["k1_suffix"]
+    kernels[0]["suffix_prefill"] = {
+        k: suffix[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                               "library_ms", "bound_ms", "bound_by")}
     report["kernels"] = kernels
     if args.report:
         with open(args.report, "w") as f:

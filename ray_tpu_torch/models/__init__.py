@@ -4,9 +4,14 @@ step, KV-cache decoding and the paged programs of the serve engine."""
 from .llama import (Llama, LlamaConfig, Lora, llama_apply, llama_hidden,
                     llama_init, llama_loss, lora_from_jax, lora_init,
                     lora_merge, params_from_jax)
+from .paged import (PageAllocator, adapter_load, copy_page,
+                    init_adapter_pool, init_paged_pools, pack_lora,
+                    paged_decode_step, paged_prefill, paged_prefill_prefix)
 from .train_state import TrainState, default_optimizer, make_train_step
 
 __all__ = ["Llama", "LlamaConfig", "Lora", "llama_apply", "llama_hidden",
            "llama_init", "llama_loss", "lora_from_jax", "lora_init",
-           "lora_merge", "params_from_jax", "TrainState",
-           "default_optimizer", "make_train_step"]
+           "lora_merge", "params_from_jax", "PageAllocator", "adapter_load",
+           "copy_page", "init_adapter_pool", "init_paged_pools", "pack_lora",
+           "paged_decode_step", "paged_prefill", "paged_prefill_prefix",
+           "TrainState", "default_optimizer", "make_train_step"]

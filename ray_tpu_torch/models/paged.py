@@ -14,7 +14,14 @@ Same layout and contracts as the JAX package:
   sequence length (plain tensor ops, as in the JAX package).  The prefill
   attends the prompt's own fresh K/V, which is causal attention over one
   sequence: it goes through ``flash_attention`` (kernel K1 on the card).
-  Every norm goes through ``rms_norm`` (kernel K4 on the card).
+  The cached-prefix prefill (``paged_prefill_prefix``) attends its suffix
+  rows over the sequence's whole gathered page table at the offset
+  ``prefix_len``: K1 again, with ``q_offset = prefix_len``.  Every norm
+  goes through ``rms_norm`` (kernel K4 on the card).
+- ``copy_page`` (the prefix cache's copy-on-write) and ``adapter_load``
+  (one LoRA slot of the adapter pool) write the pools in place; like the
+  page gathers and the LoRA deltas they are plain tensor ops, as they are
+  plain XLA in the JAX package.
 
 PyTorch runs eagerly: where JAX donates the pools, the port writes K/V into
 them in place (``index_put_`` through a per-layer view) and returns the same
@@ -34,10 +41,11 @@ from typing import Dict, Hashable, List, Optional, Set, Tuple
 
 import torch
 
+from ..device import DeviceLike
 from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
-from .llama import Llama, LlamaConfig, _mlp
+from .llama import Llama, LlamaConfig, Lora, _mlp, lora_from_jax
 
 PagedPools = Dict[str, torch.Tensor]  # {"k": [L, P+1, H_kv, page, D], "v"}
 #: {"qa": [A+1, L, d, r], "qb": [A+1, L, r, d], "va": [A+1, L, d, r],
@@ -45,16 +53,18 @@ PagedPools = Dict[str, torch.Tensor]  # {"k": [L, P+1, H_kv, page, D], "v"}
 AdapterArrays = Dict[str, torch.Tensor]
 
 #: The paged programs whose signatures and calls are counted.
-#: ``prefill_prefix`` stays at 0 until ``paged_prefill_prefix`` is ported.
-PAGED_PROGRAMS = ("decode", "prefill", "prefill_prefix")
+PAGED_PROGRAMS = ("decode", "prefill", "prefill_prefix", "page_copy",
+                  "adapter_load")
 _signatures: Dict[str, Set[Hashable]] = {n: set() for n in PAGED_PROGRAMS}
 _calls: Dict[str, int] = {n: 0 for n in PAGED_PROGRAMS}
 _count_lock = threading.Lock()
 
 
-def _record(name: str, config: LlamaConfig, *tensors: torch.Tensor) -> None:
+def _record(name: str, config: Optional[LlamaConfig],
+            *tensors: torch.Tensor) -> None:
     """One call of program ``name``: count it, and its signature (what a
-    jit specialization keys on) if new."""
+    jit specialization keys on: the tensors' shapes, dtypes and devices and
+    the static config; host ints passed as data stay out) if new."""
     sig = (config, tuple((tuple(t.shape), t.dtype, str(t.device))
                          for t in tensors))
     with _count_lock:
@@ -63,8 +73,8 @@ def _record(name: str, config: LlamaConfig, *tensors: torch.Tensor) -> None:
 
 
 def trace_count(name: str) -> int:
-    """Distinct signatures the named program (``"decode"`` /
-    ``"prefill"`` / ``"prefill_prefix"``) has run with."""
+    """Distinct signatures the named program (one of
+    ``PAGED_PROGRAMS``) has run with."""
     return len(_signatures[name])
 
 
@@ -98,9 +108,10 @@ def init_adapter_pool(config: LlamaConfig, max_adapters: int, rank: int,
                       device: Optional[torch.device] = None
                       ) -> AdapterArrays:
     """``max_adapters`` LoRA slots plus the zero slot at index
-    ``max_adapters``, all zeros.  Until the adapter pool is ported the
-    engine builds it with ``max_adapters=0``: only the zero slot, which the
-    programs take as data like the JAX ones."""
+    ``max_adapters``, all zeros (scale 0: the base model).  The pool's
+    shapes are part of every decode/prefill signature, so loading,
+    evicting or remixing adapters adds none: which slot a batch slot reads
+    is data."""
     d = config.d_model
     kv_out = config.n_kv_heads * config.head_dim
     A, L, dt = max_adapters + 1, config.n_layers, config.dtype
@@ -111,6 +122,55 @@ def init_adapter_pool(config: LlamaConfig, max_adapters: int, rank: int,
         "vb": torch.zeros((A, L, rank, kv_out), dtype=dt, device=device),
         "scale": torch.zeros((A,), dtype=torch.float32, device=device),
     }
+
+
+_ADAPTER_KEYS = ("qa", "qb", "va", "vb", "scale")
+
+
+def pack_lora(config: LlamaConfig, lora, device: DeviceLike = None
+              ) -> AdapterArrays:
+    """Stack an adapter's layers into the per-slot layout ``adapter_load``
+    writes into the pool: ``{qa [L, d, r], qb [L, r, d], va [L, d, r],
+    vb [L, r, kv_out]}`` in ``config.dtype`` and ``scale`` (layer 0's) as a
+    0-d float32.  ``lora`` is the port's ``Lora`` (packed on its own device
+    unless ``device`` is given) or a numpy tree in the JAX package's layout
+    (``{"layers": [{"wq_lora_a": ..., "scale": ...}, ...]}``, as
+    ``jax.tree.map(np.asarray, lora_init(...))`` gives), carried across by
+    ``lora_from_jax`` onto ``device`` (the card unless ``"cpu"``)."""
+    if not isinstance(lora, Lora):
+        lora = lora_from_jax(config, lora, device=device)
+    dev = lora.layers[0].scale.device if device is None else device
+    ls = lora.layers
+
+    def stack(name):
+        return torch.stack([getattr(l, name).detach() for l in ls]).to(
+            device=dev, dtype=config.dtype)
+
+    return {"qa": stack("wq_lora_a"), "qb": stack("wq_lora_b"),
+            "va": stack("wv_lora_a"), "vb": stack("wv_lora_b"),
+            "scale": ls[0].scale.detach().to(device=dev,
+                                             dtype=torch.float32)}
+
+
+@torch.no_grad()
+def adapter_load(adapters: AdapterArrays, slot: int,
+                 packed: AdapterArrays) -> AdapterArrays:
+    """Overwrite pool slot ``slot`` with one packed adapter, in place, and
+    return the pool (the JAX version donates it).  The slot is data: one
+    signature covers every slot.  A packed adapter whose shapes are not
+    the pool's (another rank, model or layer count) raises instead of
+    broadcasting."""
+    _record("adapter_load", None, adapters["qa"], packed["qa"],
+            packed["scale"])
+    for name in _ADAPTER_KEYS:
+        want = adapters[name].shape[1:]
+        if packed[name].shape != want:
+            raise ValueError(f"adapter {name} of shape "
+                             f"{tuple(packed[name].shape)} does not fit a "
+                             f"pool slot of shape {tuple(want)}")
+    for name in _ADAPTER_KEYS:
+        adapters[name][slot].copy_(packed[name])
+    return adapters
 
 
 def _lora_delta_batched(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -344,3 +404,91 @@ def paged_prefill(config: LlamaConfig, params: Llama, pools: PagedPools,
     logits = (x[length - 1:length] @ params.lm_head).float()  # last REAL row
     tok = _sample_tokens(logits, temp.reshape(1), key)[0]
     return tok, key, pools
+
+
+@torch.no_grad()
+def paged_prefill_prefix(config: LlamaConfig, params: Llama,
+                         pools: PagedPools, adapters: AdapterArrays,
+                         tokens: torch.Tensor, prefix_len: int, length: int,
+                         page_table: torch.Tensor, adapter_id: int,
+                         temp: torch.Tensor, key: torch.Generator
+                         ) -> Tuple[torch.Tensor, torch.Generator,
+                                    PagedPools]:
+    """Prefill only the SUFFIX of a prompt whose first ``prefix_len``
+    positions are already cached in this sequence's page table (a radix
+    prefix-cache hit: shared pages were written by an earlier identical
+    prefill, the copy-on-write page by ``copy_page``).
+
+    tokens [1, S_pad] int = prompt[prefix_len:] padded to a bucket;
+    ``prefix_len`` and ``length`` (the FULL prompt length) are host ints
+    and data, as in the JAX package: one signature per bucket serves every
+    split point, mid-page divergence included.  Each layer writes the
+    suffix's K/V through the page table at global positions ``prefix_len +
+    row`` (rows at or past ``length`` go to the scratch page: they may not
+    own a page, and ``prefix_len + S_pad`` may pass the table's end), then
+    gathers its whole table into a linear [1, H_kv, MAXP*ps, D] view and
+    attends it causally at ``q_offset = prefix_len`` through
+    ``flash_attention`` (kernel K1 on the card).  Every real suffix row
+    sees key 0, so this equals the JAX program's masked einsum softmax.
+    The pools are updated in place.  Returns (first_token 0-d int32, key,
+    pools)."""
+    _record("prefill_prefix", config, pools["k"], adapters["qa"], tokens,
+            page_table, temp)
+    _, s_pad = tokens.shape
+    maxp = page_table.shape[0]
+    ps = pools["k"].shape[3]
+    scratch = pools["k"].shape[1] - 1
+    hkv, hd = config.n_kv_heads, config.head_dim
+    n_ctx = maxp * ps
+    x = params.embed[tokens[0].long()].to(config.dtype)  # [S_pad, d]
+    cos, sin = rope_frequencies(hd, n_ctx, config.rope_theta,
+                                device=x.device)
+    dev = x.device
+    positions = prefix_len + torch.arange(s_pad, device=dev)  # global
+    valid = positions < length
+    table = page_table.long()
+    # Clamped like the JAX gathers: padded rows may lie past the table.
+    page_idx = torch.where(valid, table[(positions // ps).clamp(max=maxp - 1)],
+                           torch.full_like(positions, scratch))
+    off = torch.where(valid, positions % ps, torch.zeros_like(positions))
+    rope_pos = positions.clamp(max=n_ctx - 1)
+    qa_g, qb_g = adapters["qa"][adapter_id], adapters["qb"][adapter_id]
+    va_g, vb_g = adapters["va"][adapter_id], adapters["vb"][adapter_id]
+    lscale = adapters["scale"][adapter_id]
+    for i, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.attn_norm, config.norm_eps)
+        a = layer.attn
+        q = (h @ a.wq + _lora_delta_seq(h, qa_g[i], qb_g[i], lscale)
+             ).view(s_pad, config.n_heads, hd)
+        k = (h @ a.wk).view(s_pad, hkv, hd)
+        v = (h @ a.wv + _lora_delta_seq(h, va_g[i], vb_g[i], lscale)
+             ).view(s_pad, hkv, hd)
+        q = _rotary_single(q, cos, sin, rope_pos)  # per-row global RoPE
+        k = _rotary_single(k, cos, sin, rope_pos)
+        _write_kv(pools["k"], i, page_idx, off, k)  # write, then gather
+        _write_kv(pools["v"], i, page_idx, off, v)
+        k_seq = pools["k"][i][table].transpose(0, 1).reshape(1, hkv, n_ctx,
+                                                             hd)
+        v_seq = pools["v"][i][table].transpose(0, 1).reshape(1, hkv, n_ctx,
+                                                             hd)
+        out = flash_attention(q.transpose(0, 1)[None], k_seq, v_seq,
+                              causal=True, q_offset=prefix_len)[0]
+        x = x + out.transpose(0, 1).reshape(s_pad, -1) @ a.wo
+        h = rms_norm(x, layer.mlp_norm, config.norm_eps)
+        x = x + _mlp(layer, h)
+    x = rms_norm(x, params.final_norm, config.norm_eps)
+    row = length - prefix_len - 1  # the last REAL suffix row
+    logits = (x[row:row + 1] @ params.lm_head).float()
+    tok = _sample_tokens(logits, temp.reshape(1), key)[0]
+    return tok, key, pools
+
+
+@torch.no_grad()
+def copy_page(pools: PagedPools, src: int, dst: int) -> PagedPools:
+    """Copy one page's K/V across every layer, in place (copy-on-write
+    when a request diverges mid-page from a cached prefix).  ``src`` and
+    ``dst`` are data: one signature covers every divergence."""
+    _record("page_copy", None, pools["k"])
+    for name in ("k", "v"):
+        pools[name][:, dst] = pools[name][:, src]
+    return pools

@@ -1,7 +1,11 @@
-"""Serving layer of the port: the continuous-batching inference engine."""
+"""Serving layer of the port: the continuous-batching inference engine
+with its multi-tenant plane (radix prefix cache, LoRA adapter pool)."""
 
+from .adapter_pool import AdapterNotFoundError, AdapterPool
 from .engine import (EngineConfig, EngineOverloadedError, InferenceEngine,
-                     TokenStream)
+                     TokenStream, random_lora)
+from .prefix_cache import PrefixMatch, RadixPrefixCache
 
-__all__ = ["EngineConfig", "EngineOverloadedError", "InferenceEngine",
-           "TokenStream"]
+__all__ = ["AdapterNotFoundError", "AdapterPool", "EngineConfig",
+           "EngineOverloadedError", "InferenceEngine", "PrefixMatch",
+           "RadixPrefixCache", "TokenStream", "random_lora"]

@@ -5,23 +5,34 @@ The host half is the JAX engine's, copied: a dedicated loop thread;
 weighted-fair admission between decode steps with a bounded wait queue that
 sheds with :class:`EngineOverloadedError`; cancel and evict at step
 boundaries with pages returned to the free list; bucketed prefill; ONE
-batched token readback per decode step; ``stats()``.
+batched token readback per decode step; ``stats()`` and ``slo_signals()``.
 The device half runs the port's paged programs (``models/paged.py``) on
 torch tensors: the KV pool is updated in place, the tokens, lengths and
 sampling generator stay on the device between steps, and the host mirrors
 are re-uploaded only when slot membership changes.
 
-Not ported yet (ROADMAP.md, PyTorch/CUDA port, rest of serving): the radix
-prefix cache (``prefix_cache=True`` raises ``NotImplementedError``), LoRA
-adapters (``adapter=`` raises ``NotImplementedError``; the programs take the
-zero adapter slot as data), the step flight recorder, tracing spans and the
-metrics registry (plain counters on the engine stand in), and the serve
-binding (``LLMServer`` / ``llm_app``) with the SLO signals its autoscaler
-reads.
+The multi-tenant plane is the JAX engine's too.  A radix prefix cache
+(``serve/prefix_cache.py``, on by default) shares the KV pages of
+page-aligned prompt prefixes between sequences: a hit claims the cached
+pages, copies a page that diverges mid-page (``copy_page``) and prefills
+only the suffix (``paged_prefill_prefix``, kernel K1 at ``q_offset =
+prefix_len`` on the card).  A LoRA adapter pool (``serve/adapter_pool.py``)
+holds ``max_adapters`` device slots: ``register_adapter`` names an adapter,
+``submit(adapter=...)`` decodes with it, and requests on different adapters
+share one batch and one decode signature.  Control ops (adapter
+registration, cache clear, warmup's direct program calls) run on the loop
+thread, which owns the pools.
+
+Not ported yet (ROADMAP.md, PyTorch/CUDA port, rest of serving): the step
+flight recorder, tracing spans and the metrics registry (plain counters on
+the engine stand in; the recent TTFT, step-wall and stall rings behind
+``slo_signals()`` are the engine's own), and the serve binding
+(``LLMServer`` / ``llm_app``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import queue as _queue
@@ -33,12 +44,13 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.paged import (PageAllocator, call_counts, init_adapter_pool,
+from ..models.llama import Lora, _normal_, lora_init
+from ..models.paged import (PageAllocator, call_counts, copy_page,
                             init_paged_pools, paged_decode_step,
-                            paged_prefill, trace_counts)
-
-_NOT_PORTED = ("not ported yet; see ROADMAP.md, PyTorch/CUDA port: rest of "
-               "serving")
+                            paged_prefill, paged_prefill_prefix,
+                            trace_counts)
+from .adapter_pool import AdapterPool
+from .prefix_cache import RadixPrefixCache
 
 
 class EngineOverloadedError(Exception):
@@ -51,10 +63,13 @@ class EngineOverloadedError(Exception):
 class EngineConfig:
     """Sizing knobs for one engine; the fields and defaults of the JAX
     ``EngineConfig``.  ``num_pages = 0`` auto-sizes the pool to
-    ``batch_slots`` times the per-sequence worst case.  ``prefix_cache``
-    must be set False until the prefix cache is ported; ``max_adapters``,
-    ``lora_rank``, ``ttft_window``, ``step_record`` and ``step_window`` are
-    read once adapters, the serve binding and the flight recorder are."""
+    ``batch_slots`` times the per-sequence worst case.  ``max_adapters``
+    and ``lora_rank`` shape the device adapter pool (part of every program
+    signature); ``prefix_cache`` turns the radix tree over the paged KV on;
+    ``ttft_window`` sizes the recent-TTFT ring and ``step_window`` the
+    step-wall and stall rings behind ``slo_signals()``, which
+    ``step_record`` turns on (the flight recorder it also feeds in the JAX
+    package is not ported yet)."""
 
     batch_slots: int = 8
     page_size: int = 16
@@ -100,6 +115,7 @@ class _Request:
         "req_id", "prompt", "max_new", "temperature", "stop_token",
         "out_q", "cancelled", "pages", "page_table", "generated",
         "submit_t", "first_token_t", "slot", "tenant", "weight",
+        "adapter", "adapter_slot", "match", "cow_ref", "cache_hit_len",
     )
 
     def __init__(self, req_id: int, prompt: np.ndarray, max_new: int,
@@ -119,6 +135,15 @@ class _Request:
         self.slot = -1
         self.tenant = "default"
         self.weight = 1.0
+        # Multi-tenant plane: the adapter this sequence decodes with (None
+        # = base model), and the prefix-cache plan pinned at admission (the
+        # match, plus the extra copy-on-write source ref held until the
+        # page is copied).
+        self.adapter: Optional[str] = None
+        self.adapter_slot = -1
+        self.match = None
+        self.cow_ref: Optional[int] = None
+        self.cache_hit_len = 0
 
 
 class TokenStream:
@@ -166,9 +191,6 @@ class InferenceEngine:
 
     def __init__(self, model_config, params, config: EngineConfig,
                  seed: int = 0, device: DeviceLike = None):
-        if config.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True: the radix prefix cache is " + _NOT_PORTED)
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
@@ -182,10 +204,14 @@ class InferenceEngine:
         self.pools = init_paged_pools(model_config, cfg.pool_pages,
                                       cfg.page_size, device=self.device)
         self.allocator = PageAllocator(cfg.pool_pages)
-        # Only the zero adapter slot until the adapter pool is ported.
-        self.adapters = init_adapter_pool(model_config, 0, cfg.lora_rank,
-                                          device=self.device)
-        self.zero_slot = 0
+        # Multi-tenant plane: device-resident LoRA slots and the radix
+        # prefix tree over the page pool, owned by the loop thread like the
+        # allocator.
+        self.adapter_pool = AdapterPool(
+            model_config, max_adapters=cfg.max_adapters, rank=cfg.lora_rank,
+            device=self.device)
+        self._cache: Optional[RadixPrefixCache] = (
+            RadixPrefixCache(cfg.page_size) if cfg.prefix_cache else None)
         # ONE device generator threads through every prefill and decode
         # call: sampling is seeded per ENGINE, not per request.
         self._d_key = torch.Generator(device=self.device).manual_seed(seed)
@@ -200,7 +226,8 @@ class InferenceEngine:
         self._tokens = np.zeros((b,), np.int32)
         self._active = np.zeros((b,), bool)
         self._temps = np.zeros((b,), np.float32)
-        self._adapter_slots = np.full((b,), self.zero_slot, np.int32)
+        self._adapter_slots = np.full((b,), self.adapter_pool.zero_slot,
+                                      np.int32)
         self._dirty = True
         self._d_tokens = self._d_page_tables = None
         self._d_seq_lens = self._d_active = self._d_temps = None
@@ -216,6 +243,9 @@ class InferenceEngine:
         self._vtime: Dict[str, float] = {}
         self._vclock = 0.0
         self._tenants: Dict[str, Dict[str, Any]] = {}
+        # Control ops (adapter registration, cache clear) marshalled onto
+        # the loop thread: it owns the pools the ops touch.
+        self._control: List[Any] = []
         self._stop = False
         self.completed = 0
         self.shed = 0
@@ -223,6 +253,15 @@ class InferenceEngine:
         self.tokens_emitted = 0
         self.prefill_tokens = 0
         self.prefill_s = 0.0  # loop seconds spent in prefill (stalling decode)
+        self.prefix_hits = 0  # prefills that reused cached prefix pages
+        # Recent TTFTs, decode-step walls and admission stalls
+        # ((wall_time, stall_s)): what slo_signals() reads.
+        self._ttft_recent: "collections.deque" = collections.deque(
+            maxlen=cfg.ttft_window)
+        self._step_walls: "collections.deque" = collections.deque(
+            maxlen=max(16, cfg.step_window))
+        self._stall_events: "collections.deque" = collections.deque(
+            maxlen=max(16, cfg.step_window))
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="llm-engine")
         self._thread.start()
@@ -237,13 +276,12 @@ class InferenceEngine:
                weight: float = 1.0) -> TokenStream:
         """Queue one sequence; returns its token stream.
 
-        ``tenant``/``weight`` place the request in weighted-fair admission.
-        Overload sheds the HEAVIEST tenant's newest queued request with
+        ``adapter`` names a registered LoRA (None = base model; an
+        unregistered name raises ``KeyError``); ``tenant``/``weight`` place
+        the request in weighted-fair admission.  Overload sheds the
+        HEAVIEST tenant's newest queued request with
         :class:`EngineOverloadedError`: when that is the submitter itself
         the error raises here, otherwise it lands on the victim's stream."""
-        if adapter is not None:
-            raise NotImplementedError("adapter=: LoRA adapters are "
-                                      + _NOT_PORTED)
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
         if prompt.size == 0 or prompt.size > self.config.max_prompt_len:
             raise ValueError(
@@ -254,6 +292,8 @@ class InferenceEngine:
             raise ValueError("max_new_tokens must be positive")
         if weight <= 0:
             raise ValueError("tenant weight must be positive")
+        if adapter is not None and not self.adapter_pool.has(adapter):
+            raise KeyError(f"adapter {adapter!r} is not registered")
         need = math.ceil((prompt.size + max_new) / self.config.page_size)
         if need > self.allocator.total:
             raise ValueError(
@@ -267,6 +307,7 @@ class InferenceEngine:
                            float(temperature), stop_token)
             req.tenant = tenant
             req.weight = float(weight)
+            req.adapter = adapter
             rec = self._tenant_rec(tenant)
             rec["weight"] = float(weight)
             rec["submitted"] += 1
@@ -356,24 +397,153 @@ class InferenceEngine:
             "prefill_prefix_traces": traces["prefill_prefix"],
             "mode": self.config.mode,
             "tenants": tenants,
-            "prefix_cache": None,  # the prefix cache is not ported yet
+            "prefix_cache": (self._cache.stats()
+                             if self._cache is not None else None),
+            "adapters": self.adapter_pool.stats(),
             "tokens": self.tokens_emitted,
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": self.prefill_s,
+            "prefix_hits": self.prefix_hits,
             "decode_calls": calls["decode"],
             "prefill_calls": calls["prefill"],
+            "prefill_prefix_calls": calls["prefill_prefix"],
         }
 
+    #: Window over which admission-stall seconds are summed for the
+    #: autoscaler's stall-pressure signal.
+    STALL_WINDOW_S = 30.0
+
+    def slo_signals(self) -> Dict[str, Any]:
+        """Queue-depth / TTFT snapshot for SLO-driven autoscaling (host
+        counters plus a small sort), with the stall and jitter signals:
+        seconds the decode loop spent stalled on admission prefills inside
+        the last ``STALL_WINDOW_S``, and decode-step p99 jitter (p99 - p50
+        step wall)."""
+        ttfts = sorted(self._ttft_recent)
+
+        def pct(vals: List[float], p: float) -> float:
+            if not vals:
+                return 0.0
+            return vals[min(len(vals) - 1, int(p * len(vals)))]
+
+        with self._lock:
+            queued = self._queued_total()
+            tenant_queues = {t: len(q)
+                             for t, q in self._queues.items() if q}
+        now = time.time()
+        stall_s = sum(s for (t, s) in list(self._stall_events)
+                      if now - t <= self.STALL_WINDOW_S)
+        walls = sorted(self._step_walls)
+        p50, p99 = pct(walls, 0.50), pct(walls, 0.99)
+        return {
+            "queue_depth": queued,
+            "active_seqs": sum(1 for s in self.slots if s is not None),
+            "batch_slots": self.config.batch_slots,
+            "ttft_p50_s": pct(ttfts, 0.50),
+            "ttft_p90_s": pct(ttfts, 0.90),
+            "ttft_count": len(ttfts),
+            "completed": self.completed,
+            "shed": self.shed,
+            "stall_s_window": stall_s,
+            "stall_window_s": self.STALL_WINDOW_S,
+            "stall_frac": min(1.0, stall_s / self.STALL_WINDOW_S),
+            "step_p50_s": p50,
+            "step_p99_s": p99,
+            "step_jitter_p99_s": max(0.0, p99 - p50),
+            "tenant_queues": tenant_queues,
+        }
+
+    def _run_on_loop(self, fn, timeout: float = 30.0):
+        """Run ``fn`` on the loop thread (it owns pools, cache and
+        adapters) and return its result.  Raises what ``fn`` raised."""
+        done = threading.Event()
+        box: Dict[str, Any] = {}
+
+        def task():
+            try:
+                box["r"] = fn()
+            except BaseException as e:  # noqa: BLE001: re-raised below
+                box["e"] = e
+            finally:
+                done.set()
+
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("engine is shut down")
+            self._control.append(task)
+            self._wake.notify()
+        if not done.wait(timeout):
+            raise TimeoutError("engine loop did not run control op")
+        if "e" in box:
+            raise box["e"]
+        return box.get("r")
+
+    def register_adapter(self, name: str, source: Any) -> None:
+        """Register (or replace) a LoRA adapter: packed tensors
+        (``pack_lora``), a ``Lora``, a numpy tree in the JAX layout, or a
+        zero-argument callable returning one.  Replacement drops any
+        resident copy AND the adapter's prefix-cache tree: its cached V
+        deltas are stale."""
+
+        def do():
+            self.adapter_pool.register(name, source)
+            if self._cache is not None:
+                self._cache.drop_adapter(name, self.allocator)
+
+        self._run_on_loop(do)
+
+    def clear_prefix_cache(self) -> int:
+        """Release every cache-held page ref (drain to a balanced free
+        list); returns the pages released."""
+        if self._cache is None:
+            return 0
+        return self._run_on_loop(
+            lambda: self._cache.clear(self.allocator))
+
     def warmup(self) -> None:
-        """Run the decode program and every prefill bucket once (one dummy
-        sequence per bucket): builds the CUDA kernels and warms the
-        libraries before serving traffic."""
+        """Run every program once before serving traffic: the decode step,
+        every prefill bucket (one dummy sequence each), every suffix bucket
+        of the cached-prefix prefill, one page copy and one adapter load.
+        Builds the CUDA kernels and records each program's signatures, so
+        serving adds none."""
+        # max_new_tokens=2: the first token comes from the prefill; the
+        # decode program runs only once a second token is needed.
         for _ in self.submit([1], max_new_tokens=2):
             pass
         for bucket in self.config.prefill_buckets()[1:]:
             n = min(bucket, self.config.max_prompt_len)
+            if self._cache is not None:
+                # The previous bucket's ones-prompt cached its pages; a hit
+                # here would take the suffix path and skip this bucket.
+                self.clear_prefix_cache()
             for _ in self.submit(np.ones((n,), np.int32), max_new_tokens=1):
                 pass
+        if self._cache is not None \
+                and self.config.max_prompt_len >= self.config.page_size:
+            # Re-run the largest prompt: it hits the pages just cached and
+            # takes the copy-on-write and suffix-prefill path.
+            n = self.config.max_prompt_len
+            for _ in self.submit(np.ones((n,), np.int32), max_new_tokens=1):
+                pass
+            self.clear_prefix_cache()
+            # That run reached one suffix bucket; run every bucket and the
+            # page copy directly (dummy tokens into the scratch page; page 0
+            # onto itself).
+            self._run_on_loop(self._warm_prefix_path)
+        self._run_on_loop(self.adapter_pool.warmup_compile)
+
+    def _warm_prefix_path(self) -> None:
+        dev = self.device
+        pt = torch.full((self.maxp,), self.scratch, dtype=torch.int32,
+                        device=dev)
+        temp = torch.tensor(0.0, dtype=torch.float32, device=dev)
+        for b in self.config.prefill_buckets():
+            _, self._d_key, self.pools = paged_prefill_prefix(
+                self.model_config, self.params, self.pools,
+                self.adapter_pool.arrays,
+                torch.zeros((1, b), dtype=torch.int32, device=dev), 0, 1, pt,
+                0, temp, self._d_key)
+        self.pools = copy_page(self.pools, 0, 0)
 
     # ---------------------------------------------------------------- loop
 
@@ -398,7 +568,10 @@ class InferenceEngine:
         """Move queued requests into free slots (called under the lock).
         Continuous mode admits whenever a slot AND pages are free;
         whole-request mode admits a full gang only into an EMPTY batch.
-        Tenants are drained in weighted-fair order."""
+        Tenants are drained in weighted-fair order; each admission pins
+        its prefix-cache match (refcounted shares) and allocates only the
+        pages the cache can't cover, evicting cold cache leaves first when
+        the pool runs dry."""
         admitted: List[_Request] = []
         whole = self.config.mode == "whole_request"
         if whole and any(s is not None for s in self.slots):
@@ -410,19 +583,49 @@ class InferenceEngine:
             if tenant is None:
                 continue
             req = self._queues[tenant][0]
+            if not self.adapter_pool.can_acquire(req.adapter):
+                break  # every adapter slot pinned: wait for an eviction
             need_total = math.ceil((req.prompt.size + req.max_new)
                                    / self.config.page_size)
-            pages = self.allocator.alloc(need_total)
+            match = None
+            shared: List[int] = []
+            if self._cache is not None:
+                match = self._cache.lookup(req.adapter, req.prompt)
+                shared = match.pages
+                # Pin the match BEFORE any cache eviction below can free
+                # the very pages it names.
+                self._cache.claim(match, self.allocator)
+            need = need_total - len(shared)
+            pages = self.allocator.alloc(need)
+            if pages is None and self._cache is not None:
+                deficit = need - self.allocator.free_count
+                if self._cache.evict_leaves(deficit, self.allocator):
+                    pages = self.allocator.alloc(need)
             if pages is None:
+                if match is not None:  # roll the claim back
+                    held = list(shared)
+                    if match.cow_src is not None:
+                        held.append(match.cow_src)
+                    if held:
+                        self.allocator.free(held)
                 break  # pool pressure: leave queued, retry next step
             self._queues[tenant].pop(0)
+            # Reserve (pin) the adapter slot now, host-only: requests
+            # admitted in this same round must see each other's pins, or a
+            # wave of distinct adapters could over-commit the slots the
+            # can_acquire check saw free.  Weights load at prefill.
+            req.adapter_slot = self.adapter_pool.reserve(req.adapter)
             v_start = max(self._vtime.get(tenant, 0.0), self._vclock)
             w = max(req.weight, 1e-9)
             self._vtime[tenant] = v_start + self._req_cost(req) / w
             self._vclock = v_start
-            req.pages = pages
+            req.pages = shared + pages
+            req.match = match
+            if match is not None and match.cow_src is not None:
+                req.cow_ref = match.cow_src
+            req.cache_hit_len = match.prefix_len if match else 0
             pt = np.full((self.maxp,), self.scratch, np.int32)
-            pt[:need_total] = pages
+            pt[:need_total] = req.pages
             req.page_table = pt
             req.slot = slot
             self.slots[slot] = req
@@ -432,15 +635,14 @@ class InferenceEngine:
     def _evict(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
         assert req is not None
-        self.allocator.free(req.pages)
-        req.pages = []
+        self._release(req)
         self.slots[slot] = None
         self._page_tables[slot, :] = self.scratch
         self._seq_lens[slot] = 0
         self._tokens[slot] = 0
         self._active[slot] = False
         self._temps[slot] = 0.0
-        self._adapter_slots[slot] = self.zero_slot
+        self._adapter_slots[slot] = self.adapter_pool.zero_slot
         self._dirty = True
         rec = self._tenant_rec(req.tenant)
         if reason == "cancelled":
@@ -456,30 +658,79 @@ class InferenceEngine:
         else:
             req.out_q.put(("done", reason, self.step_count))
 
+    def _release(self, req: _Request) -> None:
+        """Return what an admitted request holds: its page refs (shared
+        prefix pages may stay cached), the copy-on-write source ref if the
+        copy never ran, and its adapter pin."""
+        self.allocator.free(req.pages)
+        req.pages = []
+        if req.cow_ref is not None:
+            self.allocator.free([req.cow_ref])
+            req.cow_ref = None
+        if req.adapter_slot >= 0:
+            self.adapter_pool.release(req.adapter)
+            req.adapter_slot = -1
+
     def _prefill(self, req: _Request) -> None:
         """Run one admitted sequence's prompt through the bucketed prefill
-        program and emit its first token (TTFT point)."""
+        program and emit its first token (TTFT point).  A prefix-cache hit
+        copies the copy-on-write page (mid-page divergence) and prefills
+        only the uncached suffix."""
+        # Admission reserved (pinned) the slot; load the weights if this is
+        # the adapter's first use since eviction.
+        self.adapter_pool.ensure_loaded(req.adapter)
         n = req.prompt.size
-        s_pad = self._bucket_len(n)
-        toks = np.zeros((1, s_pad), np.int32)
-        toks[0, :n] = req.prompt
         dev = self.device
-        first, self._d_key, self.pools = paged_prefill(
-            self.model_config, self.params, self.pools, self.adapters,
-            torch.tensor(toks, device=dev), n,
-            torch.tensor(req.page_table, device=dev), self.zero_slot,
-            torch.tensor(req.temperature, dtype=torch.float32, device=dev),
-            self._d_key)
-        self.prefill_tokens += n
+        prefix_len = req.cache_hit_len
+        adapters = self.adapter_pool.arrays
+        page_table = torch.tensor(req.page_table, device=dev)
+        temp = torch.tensor(req.temperature, dtype=torch.float32, device=dev)
+        if prefix_len > 0:
+            match = req.match
+            if match.cow_src is not None:
+                # Private copy of the divergent page, then drop the claim's
+                # extra ref on the source.
+                dest = int(req.page_table[len(match.pages)])
+                self.pools = copy_page(self.pools, match.cow_src, dest)
+                self.allocator.free([req.cow_ref])
+                req.cow_ref = None
+            suffix = req.prompt[prefix_len:]
+            s_pad = self._bucket_len(suffix.size)
+            toks = np.zeros((1, s_pad), np.int32)
+            toks[0, :suffix.size] = suffix
+            first, self._d_key, self.pools = paged_prefill_prefix(
+                self.model_config, self.params, self.pools, adapters,
+                torch.tensor(toks, device=dev), prefix_len, n, page_table,
+                req.adapter_slot, temp, self._d_key)
+            self.prefix_hits += 1
+            self.prefill_tokens += suffix.size  # only the work done
+        else:
+            s_pad = self._bucket_len(n)
+            toks = np.zeros((1, s_pad), np.int32)
+            toks[0, :n] = req.prompt
+            first, self._d_key, self.pools = paged_prefill(
+                self.model_config, self.params, self.pools, adapters,
+                torch.tensor(toks, device=dev), n, page_table,
+                req.adapter_slot, temp, self._d_key)
+            self.prefill_tokens += n
         first = int(first)  # THE prefill readback: the first token streams
+        # Cache every fully frozen prompt page (decode appends past the
+        # prompt, so pages wholly inside it never change again).
+        if self._cache is not None:
+            full = n // self.config.page_size
+            if full > 0:
+                self._cache.insert(
+                    req.adapter, req.prompt[:full * self.config.page_size],
+                    [int(p) for p in req.page_table[:full]], self.allocator)
         req.first_token_t = time.perf_counter()
+        self._ttft_recent.append(req.first_token_t - req.submit_t)
         slot = req.slot
         self._page_tables[slot] = req.page_table
         self._seq_lens[slot] = n
         self._tokens[slot] = first
         self._active[slot] = True
         self._temps[slot] = req.temperature
-        self._adapter_slots[slot] = self.zero_slot
+        self._adapter_slots[slot] = req.adapter_slot
         self._dirty = True
         self._emit_token(req, first)
 
@@ -497,30 +748,38 @@ class InferenceEngine:
         every in-flight request gets the error on its stream, pages return
         to the free list, and the pools are rebuilt (a failed in-place
         call may have left them half written).  Queued requests stay
-        queued and retry against the fresh pool."""
-        for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
-            self.allocator.free(req.pages)
-            req.pages = []
-            self.slots[slot] = None
-            req.out_q.put(("err", exc, self.step_count))
+        queued and retry against the fresh pool.  The streams get the
+        error once the engine is rebuilt."""
+        failed = [req for req in self.slots if req is not None]
+        for req in failed:
+            self._release(req)
+        self.slots = [None] * self.config.batch_slots
+        # The pools are rebuilt below, so every cached KV page and every
+        # resident adapter slot is garbage: drop the tree's refs and reset
+        # the adapter pool (the registry survives; adapters reload on next
+        # acquire).
+        if self._cache is not None:
+            self._cache.clear(self.allocator)
+        self.adapter_pool.reset()
         self._page_tables[:] = self.scratch
         self._seq_lens[:] = 0
         self._tokens[:] = 0
         self._active[:] = False
         self._temps[:] = 0.0
-        self._adapter_slots[:] = self.zero_slot
+        self._adapter_slots[:] = self.adapter_pool.zero_slot
         self._dirty = True
         self.pools = init_paged_pools(
             self.model_config, self.config.pool_pages,
             self.config.page_size, device=self.device)
+        for req in failed:
+            req.out_q.put(("err", exc, self.step_count))
 
     def _loop(self) -> None:
         while True:
             with self._lock:
                 if self._stop:
                     break
+                control, self._control = self._control, []
                 # Reap cancellations first: queued cancels just drop,
                 # in-flight cancels free pages before admission looks at
                 # the pool.
@@ -540,20 +799,27 @@ class InferenceEngine:
                         self._evict(slot, "cancelled")
                 admitted = self._admit_locked()
                 active = sum(1 for s in self.slots if s is not None)
-                if not admitted and active == 0:
+                if not admitted and active == 0 and not control:
                     self._wake.wait(timeout=0.05)
                     continue
             # Model work runs OUTSIDE the lock: pools/slot arrays belong
             # to this thread; submit() only appends to the wait queue.
+            # Control ops run here for the same reason.
+            for task in control:
+                task()
             try:
                 self._run_step(admitted)
             except Exception as e:  # noqa: BLE001: fail streams, not
                 self._fail_inflight(e)  # the loop thread
-        # Shutdown: fail queued + in-flight requests loudly.
+        # Shutdown: fail queued + in-flight requests loudly, and unblock any
+        # control-op waiters.
         with self._lock:
             pending = [r for q in self._queues.values() for r in q]
             for q in self._queues.values():
                 q.clear()
+            control, self._control = self._control, []
+        for task in control:
+            task()
         for req in pending:
             req.out_q.put(("err", RuntimeError(
                 "engine shut down before admission"), self.step_count))
@@ -562,10 +828,15 @@ class InferenceEngine:
                 self._evict(slot, "shutdown")
 
     def _run_step(self, admitted: List[_Request]) -> None:
+        t0 = time.perf_counter()
+        stall_s = 0.0
         for req in admitted:
             pf0 = time.perf_counter()
             self._prefill(req)
-            self.prefill_s += time.perf_counter() - pf0
+            stall_s += time.perf_counter() - pf0
+        self.prefill_s += stall_s
+        if self.config.step_record and stall_s > 0:
+            self._stall_events.append((time.time(), stall_s))
         if not any(s is not None for s in self.slots):
             return
         self.step_count += 1
@@ -585,7 +856,8 @@ class InferenceEngine:
             self._dirty = False
         (self._d_tokens, self._d_seq_lens, self._d_key,
          self.pools) = paged_decode_step(
-            self.model_config, self.params, self.pools, self.adapters,
+            self.model_config, self.params, self.pools,
+            self.adapter_pool.arrays,
             self._d_tokens, self._d_page_tables, self._d_seq_lens,
             self._d_active, self._d_temps, self._d_adapter_slots,
             self._d_key)
@@ -596,3 +868,23 @@ class InferenceEngine:
             self._seq_lens[slot] += 1
             self._tokens[slot] = toks[slot]
             self._emit_token(req, int(toks[slot]))
+        if self.config.step_record:
+            self._step_walls.append(time.perf_counter() - t0)
+
+
+def random_lora(model_config, seed: int, rank: int = 8, alpha: float = 16.0,
+                device: DeviceLike = None) -> Lora:
+    """A deterministic nonzero LoRA for tests, benchmarks and demo
+    adapters (``lora_init`` zeroes the B matrices, which would make every
+    adapter a no-op): ``lora_init`` from a ``torch.Generator`` seeded with
+    ``seed``, then both B matrices of every layer drawn at 0.05 N(0, 1).
+    The values differ from the JAX ``random_lora``'s for the same seed (the
+    RNGs differ); carry a JAX adapter across with ``lora_from_jax``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lora = lora_init(model_config, gen, rank=rank, alpha=alpha, device=dev)
+    with torch.no_grad():
+        for layer in lora.layers:
+            _normal_(layer.wq_lora_b, 0.05, gen)
+            _normal_(layer.wv_lora_b, 0.05, gen)
+    return lora

@@ -248,13 +248,12 @@ def test_one_decode_signature_for_any_mix(models):
         engine.shutdown()
 
 
-#: The keys of the JAX engine's ``stats()`` (ray_tpu/serve/engine.py), less
-#: ``adapters``, which comes with the adapter pool.
+#: The keys of the JAX engine's ``stats()`` (ray_tpu/serve/engine.py).
 _REFERENCE_STATS_KEYS = (
     "steps", "active_seqs", "queued", "free_pages", "total_pages",
     "shared_pages", "completed", "shed", "cancelled", "decode_traces",
     "prefill_traces", "prefill_prefix_traces", "mode", "tenants",
-    "prefix_cache")
+    "prefix_cache", "adapters")
 
 
 def test_engine_stats_carry_reference_keys(models):
@@ -267,8 +266,11 @@ def test_engine_stats_carry_reference_keys(models):
         assert st["shared_pages"] == engine.allocator.shared_count
         assert st["decode_traces"] == tpaged.trace_count("decode") >= 1
         assert st["prefill_traces"] == tpaged.trace_count("prefill") >= 1
-        assert st["prefill_prefix_traces"] == 0  # not ported yet
-        assert st["prefix_cache"] is None
+        assert (st["prefill_prefix_traces"]
+                == tpaged.trace_count("prefill_prefix"))
+        assert st["prefix_cache"] is None  # this engine has it turned off
+        assert st["adapters"]["registered"] == 0
+        assert st["adapters"]["free_slots"] == engine.config.max_adapters
         assert st["mode"] == "continuous" and "default" in st["tenants"]
     finally:
         engine.shutdown()
@@ -362,13 +364,22 @@ def test_engine_model_failure_fails_streams_not_the_loop(models,
         list(s)
 
 
-def test_engine_refuses_unported_features(models):
+def test_default_engine_config_builds(models):
     _, _, tc, tp = models
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        InferenceEngine(tc, tp, EngineConfig(), device="cpu")
+    engine = InferenceEngine(tc, tp, EngineConfig(), device="cpu")
+    try:
+        st = engine.stats()
+        assert st["prefix_cache"]["pages"] == 0
+        assert st["adapters"]["free_slots"] == EngineConfig().max_adapters
+    finally:
+        engine.shutdown()
+
+
+def test_submit_unregistered_adapter_raises_keyerror(models):
     engine = _engine(models)
     try:
-        with pytest.raises(NotImplementedError, match="adapters"):
-            engine.submit([1, 2], adapter="a")
+        with pytest.raises(KeyError, match="missing"):
+            engine.submit([1, 2], adapter="missing")
+        assert engine.stats()["queued"] == 0
     finally:
         engine.shutdown()
