@@ -62,19 +62,43 @@ no result line):
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
-   under the profiler (idle share, time by kernel kind); then a 2-layer
-   full-width model's loss and every gradient in bf16 (K4's backward
-   included) against the same weights in fp32 on the CPU through the
-   plain path (B=1, S=256).
+   under the profiler (idle share, time by kernel kind).
+11. remat: on the same model and optimizer state, ``full`` (the others'
+   reference in this phase), then each of ``save_attn``, ``save_dots``,
+   ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
+   policy that would not fit runs last on a fresh model at the deepest
+   depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
+   memory, allocator retries, SM clock) and one step under the profiler
+   (idle share, time by kernel kind).
+12. train check: a 2-layer full-width model's loss and every gradient in
+   bf16 (K4's backward included) against the same weights in fp32 on the
+   CPU through the plain path (B=1, S=256); then under each of the six
+   remat policies a 2-layer model's loss and gradients at S=2048 against
+   ``full``'s on the card (bit-identical, or within 2^-8).
+13. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+   6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
+   ``moe_apply`` forward, 2 warm and 5 timed
+   ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
+   the active parameters, peak memory; the loss falling), one step's idle
+   share and one step's time by kind (expert GEMMs, dense GEMMs, dispatch
+   and combine apart from other glue); then a 2-layer full-width model's
+   loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
+   and the tokens each expert kept, card against CPU, with the router
+   margins of tokens whose choice differs.
+14. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+   steps; the loss must fall by half.
 
 Kernel launch counters are zeroed just before the tiny serve, the
-forward, the serve, the multitenant and the train paths run and read just
-after: K1 and K4's forward must have launched on the tiny serve, forward
-and serve paths (K4's backward never), on the multitenant path K1 once a
-layer per prefill and K4's forward once a norm per program call, and per
-layer and step the train path must launch
-K1 and, per norm, K4's forward twice (forward and remat recompute), K2, K3
-and K4's backward once, plus the final norm once each way.
+forward, the serve, the multitenant, the train, each remat policy's and
+the moe paths run and read just after: K1 and K4's forward must have
+launched on the tiny serve, forward and serve paths (K4's backward
+never), on the multitenant path K1 once a layer per prefill and K4's
+forward once a norm per program call.  Per layer and step a train step
+with remat full (Llama's and MoE's) launches K1 and, per norm, K4's
+forward twice (forward and remat recompute), K2, K3 and K4's backward
+once, plus the final norm once each way; ``save_attn`` launches K1 once,
+``save_dots`` and ``save_dots_no_batch`` as full, and no checkpoint
+(``xla_cse``) K1 and K4's forward once (``_train_launches``).
 The second-to-last JSON line lists every kernel with its launches per
 path, error, times and bound; the last line is the device record.
 ``--report PATH`` also writes every phase's numbers to PATH as JSON.
@@ -1535,14 +1559,36 @@ _STEP_KINDS = (
 )
 
 
-def _train_launches(L: int, steps: int):
+def _train_launches(L: int, steps: int, policy: str = "full"):
     """Launches of each kernel in ``steps`` train steps of an L-layer model
-    with remat full: a block's forward (attention, two norms) runs twice
-    (forward and recompute), its backward once; the final norm once each
-    way."""
-    return {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "rms_norm": (4 * L + 1) * steps,
+    under ``remat_policy``.  ``full``, ``save_dots`` and
+    ``save_dots_no_batch``: a block's forward (attention, two norms) runs
+    twice (forward and recompute), its backward once; ``save_attn`` keeps
+    the attention's residuals, so K1 runs once; with no checkpoint
+    (``xla_cse``, ``cse_save_attn``) K1 and the norms run once.  The final
+    norm runs once each way.  The MoE block remats in full."""
+    k1 = 1 if policy in ("save_attn", "xla_cse", "cse_save_attn") else 2
+    k4 = 2 if policy in ("xla_cse", "cse_save_attn") else 4
+    return {"flash_fwd": k1 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "rms_norm": (k4 * L + 1) * steps,
             "rms_norm_bwd": (2 * L + 1) * steps}
+
+
+_OTHER = "other (elementwise, reductions, copies)"
+
+
+def _kind_of(name: str) -> str:
+    return next((k for k, pats in _STEP_KINDS
+                 if any(pat in name for pat in pats)), _OTHER)
+
+
+def _by_kind(kernels):
+    """{kind: device ms} of {kernel name: device ms}, by name pattern."""
+    out = {}
+    for name, ms in kernels.items():
+        kind = _kind_of(name)
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
 
 
 def phase_train(torch, report, seed: int, steps: int = 5):
@@ -1584,12 +1630,7 @@ def phase_train(torch, report, seed: int, steps: int = 5):
                                            iters=1)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    by_kind = {}
-    for name, ms in kernels.items():
-        kind = next((k for k, pats in _STEP_KINDS if any(
-            pat in name for pat in pats)), "other (elementwise, reductions, "
-                                           "copies)")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    by_kind = _by_kind(kernels)
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     L = cfg.n_layers
@@ -1626,7 +1667,7 @@ def phase_train(torch, report, seed: int, steps: int = 5):
         "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / prof_wall_ms,
         "by_kind_ms": by_kind, "top_kernels_ms": dict(top)}
-    return cfg, tokens
+    return cfg, tokens, state
 
 
 def phase_train_check(torch, report, cfg, tokens, seed: int):
@@ -1685,6 +1726,561 @@ def phase_train_check(torch, report, cfg, tokens, seed: int):
                              "launches": counts}
 
 
+# full first: the others' reference in the same phase.
+_POLICIES = ("full", "save_attn", "save_dots", "save_dots_no_batch",
+             "xla_cse")
+
+
+def _act_bytes(cfg, tokens: int, policy: str) -> int:
+    """Bytes one Llama layer keeps for the backward under ``policy`` at
+    ``tokens`` tokens: bf16 activations, K1's fp32 lse where the
+    attention's residuals are kept, and (with no checkpoint) the fp32 RoPE
+    upcasts of q and k that its multiplies save."""
+    d, f = cfg.d_model, cfg.d_ff
+    kv = cfg.n_kv_heads * cfg.head_dim
+    qkv, lse = d + 2 * kv, 4 * cfg.n_heads
+    kept = {  # bytes a token, the block's input first
+        "full": 2 * d,
+        "save_attn": 2 * (d + qkv + d) + lse,        # rotated q/k/v, out
+        "save_dots": 2 * (d + qkv + d + 2 * f + d),  # every product
+        # x, h, rotated q/k/v, out, merged heads, x1, h2, w1 and w3
+        # outputs, silu, their product; RoPE's fp32 q and k
+        "xla_cse": 2 * (6 * d + qkv + 4 * f) + 4 * (d + kv) + lse,
+    }
+    kept["save_dots_no_batch"] = kept["save_dots"]
+    kept["cse_save_attn"] = kept["xla_cse"]
+    return tokens * kept[policy]
+
+
+def _reckon_peak(cfg, tokens: int, policy: str, layer_params: int,
+                 other_params: int) -> float:
+    """Bytes a train step of ``cfg`` peaks at, reckoned before running it:
+    the bf16 parameters and AdamW moments, the gradients outside the
+    layers, and per layer the larger of what it keeps for the backward and
+    its gradients (a layer's activations are freed as its gradients are
+    made)."""
+    L = cfg.n_layers
+    state = 3 * 2 * (L * layer_params + other_params)
+    return (state + 2 * other_params
+            + L * max(_act_bytes(cfg, tokens, policy), 2 * layer_params))
+
+
+def _remat_steps(torch, cfg, policy, state, batch, steps, layer_params,
+                 other_params):
+    """1 warm and ``steps`` timed AdamW steps of ``state`` under
+    ``policy``: step time, MFU, peak memory beside the reckoned peak, and
+    the launches checked against the policy's; then one step under the
+    profiler (idle share, time by kernel kind)."""
+    from ray_tpu_torch.models.llama import llama_loss
+    from ray_tpu_torch.models.train_state import (default_optimizer,
+                                                  make_train_step)
+
+    B, S = batch["tokens"].shape
+    L = cfg.n_layers
+    c = dataclasses.replace(cfg, remat_policy=policy)
+    reckoned = _reckon_peak(c, B * S, policy, layer_params, other_params)
+    step = make_train_step(
+        lambda p, b: llama_loss(c, p, b["tokens"], b["targets"]),
+        default_optimizer(lr=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    clock = clocks_line()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    # A retry frees the allocator's cached blocks: a device-wide sync.
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries
+    clock = f"{clock} before, {clocks_line()} after"
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    kernels, prof_wall_ms = profile_window(torch, lambda: step(state, batch),
+                                           iters=1)
+    busy_ms = sum(kernels.values())
+    by_kind = _by_kind(kernels)
+    n_params = L * layer_params + other_params
+    tokens_per_s = B * S / step_s
+    mfu = (tokens_per_s * (6 * n_params + 6 * L * S * cfg.d_model)
+           / PEAK_BF16_FLOPS)
+    want = _train_launches(L, steps, policy)
+    print(f"[remat] {policy}: {L} layers, step {step_s * 1e3:.1f} ms, "
+          f"{tokens_per_s:.1f} tokens/s, MFU {mfu:.4f}, peak "
+          f"{peak_gb:.2f} GB (reckoned {reckoned / 1e9:.2f}); losses "
+          f"{[round(x, 4) for x in losses]}; launches {counts}; allocator "
+          f"retries {retries}; SM clock {clock}; profiled "
+          f"step: busy {busy_ms:.1f} ms of {prof_wall_ms:.1f} ms (idle share "
+          f"{1 - busy_ms / prof_wall_ms:.3f}), by kind (ms): "
+          + "; ".join(f"{k} {t:.1f}" for k, t in sorted(
+              by_kind.items(), key=lambda kv: -kv[1])), flush=True)
+    check(all(np.isfinite(losses)), f"{policy}: non-finite loss {losses}")
+    check(counts == want, f"{policy}: launches {counts}, expected {want}")
+    return {"layers": L, "step_ms": step_s * 1e3, "mfu": mfu,
+            "tokens_per_s": tokens_per_s, "peak_gb": peak_gb,
+            "reckoned_peak_gb": reckoned / 1e9, "losses": losses,
+            "launches": counts, "alloc_retries": retries, "sm_clock": clock,
+            "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / prof_wall_ms, "by_kind_ms": by_kind}
+
+
+def _remat_sizes(cfg, params):
+    """(parameters of one layer, parameters outside the layers)."""
+    layer = sum(p.numel() for p in params.layers[0].parameters())
+    total = sum(p.numel() for p in params.parameters())
+    return layer, total - len(params.layers) * layer
+
+
+def _fits(torch, cfg, tokens, policy, layer_params, other_params) -> bool:
+    budget = torch.cuda.get_device_properties(0).total_memory - 4e9
+    return _reckon_peak(cfg, tokens, policy, layer_params,
+                        other_params) <= budget
+
+
+def phase_remat(torch, report, cfg, state, tokens, steps: int = 3):
+    """Each remat policy on the train phase's Llama-3-8B model and
+    optimizer state (B=1, S=2048), ``full`` first as the others'
+    reference, when its reckoned peak fits the card at that depth.
+    Returns the policies that do not fit, for ``phase_remat_shallow``."""
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    sizes = _remat_sizes(cfg, state.params)
+    out, deferred = {}, []
+    for policy in _POLICIES:
+        if _fits(torch, cfg, tokens.numel(), policy, *sizes):
+            out[policy] = _remat_steps(torch, cfg, policy, state, batch,
+                                       steps, *sizes)
+        else:
+            deferred.append(policy)
+    report["remat"] = out
+    return deferred
+
+
+def phase_remat_shallow(torch, report, cfg, tokens, deferred, seed: int,
+                        steps: int = 3):
+    """Each policy ``phase_remat`` deferred, on a fresh model at the
+    deepest depth whose reckoned peak fits (the shared state freed
+    first); then the launches of the whole remat path."""
+    from ray_tpu_torch.models.llama import Llama, llama_init
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer)
+
+    out = report["remat"]
+    sizes = _remat_sizes(cfg, Llama(dataclasses.replace(cfg, n_layers=1),
+                                    torch.device("meta")))
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    for policy in deferred:
+        L = max(n for n in range(1, cfg.n_layers + 1) if _fits(
+            torch, dataclasses.replace(cfg, n_layers=n), tokens.numel(),
+            policy, *sizes))
+        print(f"[remat] {policy} does not fit {cfg.n_layers} layers; "
+              f"running {L}", flush=True)
+        c = dataclasses.replace(cfg, n_layers=L)
+        params = llama_init(c, torch.Generator(device="cuda")
+                            .manual_seed(seed + 2), trainable=True)
+        state = TrainState.create(params, default_optimizer(lr=1e-4))
+        out[policy] = _remat_steps(torch, c, policy, state, batch, steps,
+                                   *sizes)
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in _POLICIES)
+                       for k in _counters()}
+
+
+def phase_remat_check(torch, report, cfg, tokens, seed: int):
+    """Two layers of Llama-3-8B (B=1, S=2048): under every policy the loss
+    and every gradient against ``full``'s on the same batch, and one step's
+    launches against the policy's."""
+    from ray_tpu_torch.models.llama import _REMAT, llama_init, llama_loss
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = llama_init(cfg2, torch.Generator(device="cuda")
+                        .manual_seed(seed + 4), trainable=True)
+    tgt = torch.roll(tokens, -1, dims=1)
+    ref, out = None, {}
+    # The policies run the same kernels on the same values: bit-identical
+    # results are expected; 2^-8 (one bf16 rounding) in relative norm
+    # would be allowed where a kept tensor were summed in another order.
+    tol = 2.0 ** -8
+    for policy in ["full"] + [p for p in _REMAT if p != "full"]:
+        c = dataclasses.replace(cfg2, remat_policy=policy)
+        _reset_counts()
+        loss = llama_loss(c, params, tokens, tgt)
+        loss.backward()
+        loss = loss.detach()
+        counts = _read_counts()
+        check(counts == _train_launches(2, 1, policy),
+              f"{policy}: launches {counts}, expected "
+              f"{_train_launches(2, 1, policy)}")
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+        if ref is None:
+            ref = (loss, grads)
+            continue
+        identical = bool(torch.equal(loss, ref[0])) and all(
+            torch.equal(g, ref[1][n]) for n, g in grads.items())
+        rel = max(float((g.float() - ref[1][n].float()).norm()
+                        / ref[1][n].float().norm()) for n, g in grads.items())
+        loss_rel = abs(float(loss) - float(ref[0])) / abs(float(ref[0]))
+        print(f"[remat-check] {policy}: loss {float(loss):.6f} vs full "
+              f"{float(ref[0]):.6f}; "
+              + ("bit-identical to full" if identical else
+                 f"worst gradient rel norm err {rel:.3g} (tol {tol:.3g})")
+              + f"; launches {counts}", flush=True)
+        check(identical or (rel <= tol and loss_rel <= tol),
+              f"{policy} disagrees with full: loss rel {loss_rel}, "
+              f"gradient rel {rel}")
+        out[policy] = {"bit_identical": identical, "grad_rel": rel,
+                       "loss_rel": loss_rel, "launches": counts}
+    report["remat_check"] = out
+
+
+# The MoE FFN's profiler ranges: (their GEMMs, the rest) by range.
+_MOE_RANGES = {"moe.experts": ("expert GEMMs (bmm)",
+                               "expert SwiGLU elementwise"),
+               "moe.ffn": ("dispatch and combine products",
+                           "routing, dispatch and combine glue (one-hots, "
+                           "cumsum, softmax, casts)")}
+_EVAL = "autograd::engine::evaluate_function: "
+
+
+def _moe_profile(torch, step_fn):
+    """One call of ``step_fn`` profiled with CPU and CUDA activity, with
+    ``moe._moe_ffn`` and ``moe._experts`` under profiler ranges: {kind:
+    device ms}.  A kernel goes to the innermost range around the op that
+    launched it; else, when that op runs in an autograd node's evaluation
+    (and is not itself a forward op: the remat recompute creates nodes),
+    to the range the node's forward op ran in, matched by forward thread
+    and sequence number; else to its kind by name (``_STEP_KINDS``, the
+    GEMMs there being the dense projections and lm_head)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ray_tpu_torch.models import moe
+
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    originals = (moe._moe_ffn, moe._experts)
+    moe._moe_ffn = ranged("moe.ffn", moe._moe_ffn)
+    moe._experts = ranged("moe.experts", moe._experts)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+    finally:
+        moe._moe_ffn, moe._experts = originals
+    events = list(prof.events())
+
+    def owner(e):
+        """A range name, a node evaluation, or None (unranged forward)."""
+        forward = False
+        while e is not None:
+            if e.name in _MOE_RANGES:
+                return e.name
+            if e.name.startswith(_EVAL):
+                return None if forward else e
+            if e.sequence_nr >= 0 and "Backward" not in e.name:
+                forward = True
+            e = e.cpu_parent
+        return None
+
+    created = {}  # (forward thread, sequence nr) -> range
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith(_EVAL):
+            o = owner(e)
+            if isinstance(o, str):
+                created[(e.thread, e.sequence_nr)] = o
+    by_kind = {}
+    for e in events:
+        if not e.kernels:
+            continue
+        o = owner(e)
+        if o is not None and not isinstance(o, str):
+            o = created.get((o.fwd_thread, o.sequence_nr))
+        for k in e.kernels:
+            kind = _kind_of(k.name)
+            if o is not None:
+                kind = _MOE_RANGES[o][0 if kind == "GEMM (cuBLAS)" else 1]
+            elif kind == "GEMM (cuBLAS)":
+                kind = "dense GEMMs (projections, lm_head)"
+            by_kind[kind] = by_kind.get(kind, 0.0) + k.duration / 1e3
+    return by_kind
+
+
+def _active_params(cfg, n_params: int) -> int:
+    """Parameters a token runs through: each layer's experts count top_k
+    times of n_experts."""
+    expert = 3 * cfg.d_model * cfg.d_ff
+    return n_params - cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert
+
+
+def phase_moe(torch, report, seed: int, steps: int = 5):
+    """``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+    random weights from a seed, bf16, remat full) at B=1, S=2048: a
+    ``moe_apply`` forward, then 2 warm and ``steps`` timed AdamW steps
+    through ``make_train_step(moe_loss)``; one step profiled for the idle
+    share (device activity only) and one for time by kind."""
+    from ray_tpu_torch.models.moe import (MoEConfig, moe_apply, moe_init,
+                                          moe_loss)
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer,
+                                                  make_train_step)
+
+    cfg = MoEConfig.mixtral_8x7b(n_layers=4)
+    B, S = 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    t0 = time.perf_counter()
+    params = moe_init(cfg, gen, trainable=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(),
+          f"{n_params} parameters, MoEConfig.param_count() "
+          f"{cfg.param_count()}")
+    check(params.layers[0].moe.router.dtype == torch.float32,
+          "the router is not fp32")
+    n_active = _active_params(cfg, n_params)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        moe_apply(cfg, params, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            logits, aux = moe_apply(cfg, params, tokens)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3 / 3
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(aux)),
+          f"moe_apply: logits {tuple(logits.shape)}, aux {float(aux)}")
+    del logits
+    tx = default_optimizer(lr=1e-4)
+    state = TrainState.create(params, tx)
+    step = make_train_step(
+        lambda p, b: moe_loss(cfg, p, b["tokens"], b["targets"]), tx)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernels, prof_wall_ms = profile_window(torch, lambda: step(state, batch),
+                                           iters=1)
+    busy_ms = sum(kernels.values())
+    by_kind = _moe_profile(torch, lambda: step(state, batch))
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    L = cfg.n_layers
+    tokens_per_s = B * S / step_s
+    # bench.py's convention, 6N + 6 L S d a token, with N the active
+    # parameters (a token's top_k experts of n_experts).
+    mfu = (tokens_per_s * (6 * n_active + 6 * L * S * cfg.d_model)
+           / PEAK_BF16_FLOPS)
+    want = _train_launches(L, steps)
+    print(f"[moe] Mixtral-8x7B widths, {L} layers: {n_params / 1e9:.3f}B "
+          f"params ({n_active / 1e9:.3f}B active, the N of MFU), bf16 "
+          f"(router fp32), remat full, capacity {cfg.capacity(B * S)}; "
+          f"init {init_s:.1f} s; moe_apply B={B} S={S} {fwd_ms:.1f} ms; "
+          f"step {step_s * 1e3:.1f} ms, {tokens_per_s:.1f} tokens/s, MFU "
+          f"{mfu:.4f}; peak memory {peak_gb:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 4) for x in norms]}; launches {counts}", flush=True)
+    print(f"[moe] profiled step: device busy {busy_ms:.1f} ms of "
+          f"{prof_wall_ms:.1f} ms wall (idle share "
+          f"{1 - busy_ms / prof_wall_ms:.3f}); by kind (ms, CPU and CUDA "
+          f"traced): " + "; ".join(f"{k} {t:.1f}" for k, t in sorted(
+              by_kind.items(), key=lambda kv: -kv[1])), flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(counts == want, f"moe launches {counts}, expected {want}")
+    report["moe"] = {
+        "params_b": n_params / 1e9, "active_params_b": n_active / 1e9,
+        "layers": L, "batch": B, "seq": S, "steps": steps,
+        "capacity": cfg.capacity(B * S), "init_s": init_s,
+        "forward_ms": fwd_ms, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens_per_s, "mfu": mfu, "peak_gb": peak_gb,
+        "losses": losses, "grad_norms": norms, "launches": counts,
+        "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / prof_wall_ms, "by_kind_ms": by_kind}
+    return cfg, tokens
+
+
+def _routing(torch, cfg, params, tokens):
+    """Per layer ``(probs [G, E] fp32, top_e [G, k], kept [E])`` of a
+    no-grad ``moe_apply``, recorded on the CPU."""
+    from ray_tpu_torch.models import moe
+
+    rec, original = [], moe._route
+
+    def recording(config, router, xf):
+        out = original(config, router, xf)
+        probs, _, top_e, slot_oh = out
+        rec.append((probs.float().cpu(), top_e.cpu(),
+                    slot_oh.sum((0, 1, 3)).long().cpu()))
+        return out
+
+    moe._route = recording
+    try:
+        with torch.no_grad():
+            moe.moe_apply(cfg, params, tokens)
+    finally:
+        moe._route = original
+    return rec
+
+
+def phase_moe_check(torch, report, cfg, tokens, seed: int):
+    """Two MoE layers at full width (B=1, S=256).  The tokens each expert
+    kept, card (bf16) against CPU (fp32), with the router margins of the
+    tokens whose expert choice differs.  Then the loss and every gradient
+    in bf16 on the card against the same weights in fp32 on the CPU
+    through the plain path, the CPU held to the card's expert choices:
+    a token whose choice flips between bf16 and fp32 (a router margin
+    under the rounding of its hidden state) moves a whole token's
+    contribution between experts, which is not an arithmetic error."""
+    from ray_tpu_torch.models import moe
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = moe.moe_init(cfg2, torch.Generator(device="cuda")
+                          .manual_seed(seed + 6), trainable=True)
+    tok = tokens[:, :256]
+    tgt = torch.roll(tok, -1, dims=1)
+    _reset_counts()
+    loss = moe.moe_loss(cfg2, params, tok, tgt)
+    loss.backward()
+    loss = float(loss.detach())
+    counts = _read_counts()
+    check(counts == _train_launches(2, 1),
+          f"moe check launches {counts}, expected {_train_launches(2, 1)}")
+    got = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    card_routes = _routing(torch, cfg2, params, tok)
+    cpu = moe.MoE(dataclasses.replace(cfg2, dtype=torch.float32,
+                                      remat=False), torch.device("cpu"))
+    cpu.load_state_dict(params.state_dict())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_routes = _routing(torch, cpu.config, cpu, tok.cpu())
+    kept = []
+    for layer, ((_, ce, ck), (cp, pe, pk)) in enumerate(
+            zip(card_routes, cpu_routes)):
+        top = cp.sort(dim=-1, descending=True).values
+        margin = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        flipped = (ce.sort(-1).values != pe.sort(-1).values).any(-1)
+        kept.append({"card": ck.tolist(), "cpu": pk.tolist(),
+                     "equal": bool(torch.equal(ck, pk)),
+                     "flipped_tokens": flipped.nonzero()[:, 0].tolist(),
+                     "flipped_margins": margin[flipped].tolist(),
+                     "min_margin": float(margin.min())})
+        print(f"[moe-check] layer {layer}: tokens kept per expert, card "
+              f"{ck.tolist()}, CPU {pk.tolist()}; "
+              + ("equal" if torch.equal(ck, pk) else "different")
+              + f"; tokens whose experts differ "
+              f"{flipped.nonzero()[:, 0].tolist()[:10]} with CPU router "
+              f"margins {[round(x, 5) for x in margin[flipped].tolist()[:10]]}"
+              f" (smallest margin of all {float(margin.min()):.3g})",
+              flush=True)
+
+    # The CPU's loss and gradients with the card's expert choices.
+    choices, top_k = [e for _, e, _ in card_routes], moe._top_k
+
+    def card_choice(probs, k):
+        top_e = choices.pop(0)
+        return probs.gather(-1, top_e), top_e
+
+    cpu.requires_grad_(True)
+    moe._top_k = card_choice
+    try:
+        ref = moe.moe_loss(cpu.config, cpu, tok.cpu(), tgt.cpu())
+    finally:
+        moe._top_k = top_k
+    check(not choices, f"{len(choices)} recorded expert choices unused")
+    ref.backward()
+    ref = float(ref.detach())
+    cpu_s = time.perf_counter() - t0
+    rel = {n: float((got[n] - p.grad).norm() / p.grad.norm())
+           for n, p in cpu.named_parameters()}
+    loss_rel = abs(loss - ref) / abs(ref)
+    # As phase_train_check: bf16 roundings at each op of a layer, weight
+    # gradients summed over 256 tokens: 1-2 % expected, 5 % the bound; the
+    # loss 1 %.
+    grad_tol, loss_tol = 5e-2, 1e-2
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[moe-check] 2-layer full-width S=256 vs fp32 CPU plain path "
+          f"with the card's expert choices ({cpu_s:.1f} s): loss "
+          f"{loss:.5f} vs {ref:.5f} (rel {loss_rel:.3g}, tol {loss_tol}); "
+          f"gradient rel norm err over {len(rel)} tensors, worst: "
+          + ", ".join(f"{n} {e:.4g}" for n, e in worst)
+          + f" (tol {grad_tol})", flush=True)
+    check(loss_rel <= loss_tol and max(rel.values()) <= grad_tol,
+          f"MoE train path disagrees with the fp32 CPU reference: loss rel "
+          f"{loss_rel}, gradient rel {dict(worst)}")
+    report["moe_check"] = {"loss": loss, "ref_loss": ref,
+                           "loss_rel": loss_rel, "grad_rel": rel,
+                           "grad_tol": grad_tol, "loss_tol": loss_tol,
+                           "launches": counts, "kept": kept}
+
+
+def phase_mlp(torch, report, seed: int, steps: int = 20):
+    """The MNIST MLP (784-256-256-10, fp32) built by ``mlp_init`` with no
+    device given, so on the card: ``steps`` AdamW steps on a batch of
+    random images whose labels follow a fixed linear rule; the loss must
+    fall."""
+    from ray_tpu_torch.models.mlp import MLPConfig, mlp_init, mlp_loss
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer,
+                                                  make_train_step)
+
+    cfg = MLPConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    params = mlp_init(cfg, gen, trainable=True)
+    check(all(p.is_cuda for p in params.parameters()),
+          "mlp_init with no device did not build on the card")
+    x = torch.randn(512, cfg.in_dim, generator=gen, device="cuda")
+    rule = torch.randn(cfg.in_dim, cfg.out_dim, generator=gen, device="cuda")
+    y = (x @ rule).argmax(-1)
+    tx = default_optimizer(lr=1e-3)
+    state = TrainState.create(params, tx)
+    step = make_train_step(lambda p, b: mlp_loss(cfg, p, b["x"], b["y"]),
+                           tx)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, {"x": x, "y": y})
+        losses.append(float(m["loss"]))
+    wall_s = time.perf_counter() - t0
+    print(f"[mlp] 784-256-256-10 on {params.layers[0].w.device}: {steps} "
+          f"AdamW steps in {wall_s:.2f} s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          f"the MLP loss did not fall by half: {losses}")
+    report["mlp"] = {"steps": steps, "wall_s": wall_s, "losses": losses}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1722,15 +2318,26 @@ def main(argv=None) -> int:
     del params  # the serving model makes room for training
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, tokens = phase_train(torch, report, args.seed)
+    cfg, tokens, state = phase_train(torch, report, args.seed)
+    deferred = phase_remat(torch, report, cfg, state, tokens)
+    del state
     gc.collect()
     torch.cuda.empty_cache()
+    phase_remat_shallow(torch, report, cfg, tokens, deferred, args.seed)
     phase_train_check(torch, report, cfg, tokens, args.seed)
+    phase_remat_check(torch, report, cfg, tokens, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cfg, moe_tokens = phase_moe(torch, report, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_check(torch, report, moe_cfg, moe_tokens, args.seed)
+    phase_mlp(torch, report, args.seed)
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "multitenant",
-                          "train")}
+                          "train", "remat", "moe")}
     bwd = report["flash_bwd"]["main"]
     kernels = []
     for name, src, replaces, main in (

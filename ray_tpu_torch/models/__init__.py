@@ -1,9 +1,14 @@
-"""Models of the port: the Llama forward pass, loss and LoRA, the train
-step, KV-cache decoding and the paged programs of the serve engine."""
+"""Models of the port: the Llama forward pass, loss and LoRA, the
+Mixtral-family MoE decoder, the MNIST MLP, the train step, KV-cache
+decoding and the paged programs of the serve engine."""
 
 from .llama import (Llama, LlamaConfig, Lora, llama_apply, llama_hidden,
                     llama_init, llama_loss, lora_from_jax, lora_init,
                     lora_merge, params_from_jax)
+from .mlp import (MLPConfig, mlp_apply, mlp_init, mlp_loss,
+                  mlp_params_from_jax)
+from .moe import (MoE, MoEConfig, moe_apply, moe_init, moe_loss,
+                  moe_params_from_jax)
 from .paged import (PageAllocator, adapter_load, copy_page,
                     init_adapter_pool, init_paged_pools, pack_lora,
                     paged_decode_step, paged_prefill, paged_prefill_prefix)
@@ -11,7 +16,10 @@ from .train_state import TrainState, default_optimizer, make_train_step
 
 __all__ = ["Llama", "LlamaConfig", "Lora", "llama_apply", "llama_hidden",
            "llama_init", "llama_loss", "lora_from_jax", "lora_init",
-           "lora_merge", "params_from_jax", "PageAllocator", "adapter_load",
+           "lora_merge", "params_from_jax", "MLPConfig", "mlp_apply",
+           "mlp_init", "mlp_loss", "mlp_params_from_jax", "MoE",
+           "MoEConfig", "moe_apply", "moe_init", "moe_loss",
+           "moe_params_from_jax", "PageAllocator", "adapter_load",
            "copy_page", "init_adapter_pool", "init_paged_pools", "pack_lora",
            "paged_decode_step", "paged_prefill", "paged_prefill_prefix",
            "TrainState", "default_optimizer", "make_train_step"]

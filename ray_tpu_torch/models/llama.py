@@ -8,8 +8,9 @@
 compare like with like.  Parameters are frozen unless built with
 ``trainable=True``; serving callers run under ``torch.no_grad()``.
 ``llama_hidden`` is differentiable: with ``config.remat`` each block is
-checkpointed (``remat_policy="full"``), so its forward, kernel K1 included,
-runs again in the backward.  Attention goes through ``flash_attention``
+wrapped as ``config.remat_policy`` says (``_REMAT``), which decides what
+the backward keeps and what it computes again, kernel K1 included.
+Attention goes through ``flash_attention``
 (kernels K1 and, for gradients, K2/K3 on the card) and every norm through
 ``rms_norm`` (kernel K4 on the card, and for gradients K4's backward); the
 projections and the MLP stay plain ``torch.matmul``, as the JAX package
@@ -19,12 +20,14 @@ left them to XLA.  Ring attention (``sp_ring``) is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
@@ -38,8 +41,8 @@ class LlamaConfig:
     """Same fields and stock sizes as the JAX ``LlamaConfig``, with a torch
     dtype.  ``flash_block_q/k`` are TPU tiling knobs the port does not read
     (the CUDA kernels' tiles are fixed, see ``ops/attention.py``);
-    ``remat_policy`` other than ``"full"`` and ``sp_ring=True`` raise until
-    they are ported (ROADMAP.md)."""
+    ``remat_policy`` is one of the JAX package's six (``_REMAT``);
+    ``sp_ring=True`` raises until ring attention is ported (ROADMAP.md)."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -210,15 +213,15 @@ def _to_tensor(a: Any, dtype: torch.dtype, device: torch.device
     return t.to(device=device, dtype=dtype)
 
 
-def _load_tree(model: nn.Module, np_tree: Mapping[str, Any],
-               dtype: torch.dtype) -> None:
+def _load_tree(model: nn.Module, np_tree: Mapping[str, Any]) -> None:
     """Copy every parameter from the numpy tree at its own name's path
-    (``layers.0.attn.wq`` -> ``np_tree["layers"][0]["attn"]["wq"]``)."""
+    (``layers.0.attn.wq`` -> ``np_tree["layers"][0]["attn"]["wq"]``), cast
+    to the parameter's dtype."""
     for name, p in model.named_parameters():
         node = np_tree
         for key in name.split("."):
             node = node[int(key)] if key.isdigit() else node[key]
-        t = _to_tensor(node, dtype, p.device)
+        t = _to_tensor(node, p.dtype, p.device)
         if t.shape != p.shape:
             raise ValueError(f"{name}: weight shape {tuple(t.shape)} != "
                              f"{tuple(p.shape)}")
@@ -235,13 +238,14 @@ def params_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
         raise ValueError(f"{len(np_tree['layers'])} layers for a "
                          f"{config.n_layers}-layer config")
     model = Llama(config, resolve_device(device))
-    _load_tree(model, np_tree, config.dtype)
+    _load_tree(model, np_tree)
     return model.requires_grad_(trainable)
 
 
-def _attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
-               cos: torch.Tensor, sin: torch.Tensor,
-               lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
+def _qkv(config: LlamaConfig, x: torch.Tensor, layer: Block,
+         cos: torch.Tensor, sin: torch.Tensor,
+         lora_layer: Optional["LoraLayer"] = None):
+    """The rotated q [B, H, S, D], k and v [B, Hkv, S, D] of normed x."""
     B, S, d = x.shape
     hd = config.head_dim
     a = layer.attn
@@ -256,10 +260,21 @@ def _attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
     q = q.view(B, S, config.n_heads, hd).transpose(1, 2)
     k = k.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
     v = v.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
-    q = apply_rotary(q, cos, sin)
-    k = apply_rotary(k, cos, sin)
-    out = flash_attention(q, k, v, causal=True)
-    return out.transpose(1, 2).reshape(B, S, d) @ a.wo
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def _attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
+               cos: torch.Tensor, sin: torch.Tensor,
+               lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
+    out = flash_attention(*_qkv(config, x, layer, cos, sin, lora_layer),
+                          causal=True)
+    return _merge_heads(out) @ layer.attn.wo
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> [B, S, H * D]."""
+    B, H, S, D = out.shape
+    return out.transpose(1, 2).reshape(B, S, H * D)
 
 
 def _mlp(layer: Block, x: torch.Tensor) -> torch.Tensor:
@@ -267,39 +282,110 @@ def _mlp(layer: Block, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ m.w1) * (x @ m.w3)) @ m.w2
 
 
+def _pre_attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
+                   cos: torch.Tensor, sin: torch.Tensor,
+                   lora_layer: Optional["LoraLayer"] = None):
+    """A block up to attention: the norm, projections, LoRA and RoPE."""
+    h = rms_norm(x, layer.attn_norm, config.norm_eps)
+    return _qkv(config, h, layer, cos, sin, lora_layer)
+
+
+def _post_attention(config: LlamaConfig, x: torch.Tensor,
+                    out: torch.Tensor, layer: Block) -> torch.Tensor:
+    """A block after attention: ``wo``, the residual and the MLP half."""
+    x = x + _merge_heads(out) @ layer.attn.wo
+    h = rms_norm(x, layer.mlp_norm, config.norm_eps)
+    return x + _mlp(layer, h)
+
+
 def _block(config: LlamaConfig, x: torch.Tensor, layer: Block,
            cos: torch.Tensor, sin: torch.Tensor,
            lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
-    h = rms_norm(x, layer.attn_norm, config.norm_eps)
-    x = x + _attention(config, h, layer, cos, sin, lora_layer)
-    h = rms_norm(x, layer.mlp_norm, config.norm_eps)
-    return x + _mlp(layer, h)
+    out = flash_attention(
+        *_pre_attention(config, x, layer, cos, sin, lora_layer),
+        causal=True)
+    return _post_attention(config, x, out, layer)
+
+
+def _block_full(*args) -> torch.Tensor:
+    return checkpoint(_block, *args, use_reentrant=False)
+
+
+def _block_save_attn(config, x, layer, cos, sin, lora_layer):
+    """JAX's ``save_only_these_names("flash_res")``: the attention
+    Function runs between two checkpointed segments, so what it saves (the
+    rotated q, k, v, its output and lse, JAX's ``flash_res``) is kept and
+    K1 does not run again in the backward; the rest is recomputed."""
+    q, k, v = checkpoint(_pre_attention, config, x, layer, cos, sin,
+                         lora_layer, use_reentrant=False)
+    out = flash_attention(q, k, v, causal=True)
+    return checkpoint(_post_attention, config, x, out, layer,
+                      use_reentrant=False)
+
+
+#: The products a 3-D ``x @ w`` (a view, then ``aten.mm``) and an einsum
+#: (``aten.bmm``: a product with batch dimensions) reach under a selective
+#: checkpoint.
+_MM, _BMM = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+
+
+def _block_saving(ops):
+    """A checkpointed block that keeps the outputs of ``ops`` and
+    recomputes everything else (K1 included: a ctypes call, not a
+    product, as the Pallas kernel's outputs are not dots in JAX)."""
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   ops)
+
+    def block(*args) -> torch.Tensor:
+        return checkpoint(_block, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return block
+
+
+#: ``remat_policy`` -> the block as the forward runs it under autograd.
+#: ``full``: nothing kept, the whole block recomputed.  ``save_attn``:
+#: the attention Function's residuals kept.  ``save_dots`` (JAX's
+#: ``checkpoint_dots``): every product kept.  ``save_dots_no_batch``
+#: (``checkpoint_dots_with_no_batch_dims``): products without batch
+#: dimensions kept; on Llama the same tensors as ``save_dots`` on the card,
+#: where the attention products live inside K1.  ``xla_cse`` and
+#: ``cse_save_attn`` set ``prevent_cse=False`` in JAX, which lets XLA merge
+#: the recompute with the forward and keeps every layer's activations
+#: live: their counterpart is no checkpoint at all.
+_REMAT = {
+    "full": _block_full,
+    "save_attn": _block_save_attn,
+    "save_dots": _block_saving([_MM, _BMM]),
+    "save_dots_no_batch": _block_saving([_MM]),
+    "xla_cse": _block,
+    "cse_save_attn": _block,
+}
 
 
 def llama_hidden(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
                  lora_params: Optional["Lora"] = None) -> torch.Tensor:
     """Final-norm hidden states [B, S, d] (logits = hidden @ lm_head).
-    Under autograd with ``config.remat`` each block is checkpointed: its
-    activations are recomputed in the backward instead of kept."""
+    Under autograd with ``config.remat`` each block runs as
+    ``config.remat_policy`` says (``_REMAT``): every policy gives the same
+    values and gradients, and differs only in what the backward keeps and
+    what it runs again."""
     if config.sp_ring:
         raise NotImplementedError(
             "ring attention is not ported yet; see ROADMAP.md, PyTorch/CUDA "
             "port")
-    remat = config.remat and torch.is_grad_enabled()
-    if remat and config.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is not ported yet (only "
-            f"'full'); see ROADMAP.md, PyTorch/CUDA port: training")
+    if config.remat_policy not in _REMAT:
+        raise ValueError(f"remat_policy {config.remat_policy!r} is not one "
+                         f"of {sorted(_REMAT)}")
+    block = _block
+    if config.remat and torch.is_grad_enabled():
+        block = _REMAT[config.remat_policy]
     x = params.embed[tokens].to(config.dtype)
     cos, sin = rope_frequencies(config.head_dim, config.max_seq,
                                 config.rope_theta, device=x.device)
     for i, layer in enumerate(params.layers):
         ll = lora_params.layers[i] if lora_params is not None else None
-        if remat:
-            x = checkpoint(_block, config, x, layer, cos, sin, ll,
-                           use_reentrant=False)
-        else:
-            x = _block(config, x, layer, cos, sin, ll)
+        x = block(config, x, layer, cos, sin, ll)
     return rms_norm(x, params.final_norm, config.norm_eps)
 
 
@@ -393,7 +479,7 @@ def lora_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
                          f"{config.n_layers}-layer config")
     rank = np.asarray(np_tree["layers"][0]["wq_lora_a"]).shape[1]
     lora = Lora(config, rank, resolve_device(device))
-    _load_tree(lora, np_tree, config.dtype)
+    _load_tree(lora, np_tree)
     return lora.requires_grad_(True)
 
 

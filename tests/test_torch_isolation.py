@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 def test_import_leaves_ray_tpu_unloaded():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.ops, "
             "ray_tpu_torch.models.generate, ray_tpu_torch.models.paged, "
-            "ray_tpu_torch.models.train_state, ray_tpu_torch.ops.losses, "
+            "ray_tpu_torch.models.train_state, ray_tpu_torch.models.moe, "
+            "ray_tpu_torch.models.mlp, ray_tpu_torch.ops.losses, "
             "ray_tpu_torch.serve.engine; "
             "print(sorted(m for m in sys.modules if m == 'ray_tpu' "
             "or m.startswith('ray_tpu.')))")

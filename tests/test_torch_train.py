@@ -18,6 +18,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import LlamaConfig as JaxConfig
 from ray_tpu.models import TrainState as JaxTrainState
@@ -138,16 +139,120 @@ def test_remat_gives_the_same_loss_and_grads():
 
 
 def test_unported_training_options_raise():
+    """Ring attention and sharded steps are not ported yet."""
     _, _, tc, np_tree = _pair("tiny")
     tp = params_from_jax(tc, np_tree, device="cpu", trainable=True)
     toks = torch.zeros((1, 8), dtype=torch.long)
-    cfg = dataclasses.replace(tc, remat=True, remat_policy="save_attn")
+    cfg = dataclasses.replace(tc, sp_ring=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama_loss(cfg, tp, toks, toks)
-    with torch.no_grad():  # the policy only matters under autograd
-        assert llama_apply(cfg, tp, toks).shape == (1, 8, tc.vocab_size)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(lambda p, b: p, default_optimizer(), mesh=object())
+    with pytest.raises(ValueError, match="remat_policy"):
+        llama_loss(dataclasses.replace(tc, remat_policy="dots"), tp, toks,
+                   toks)
+
+
+_POLICIES = ("full", "save_attn", "cse_save_attn", "save_dots",
+             "save_dots_no_batch", "xla_cse")
+
+
+@pytest.mark.parametrize("policy", _POLICIES)
+def test_remat_policy_matches_full_and_jax(policy):
+    """Every policy runs the same ops on the same values: the loss and
+    every gradient are bit-identical to ``full``'s, and match the JAX
+    package's ``llama_loss`` under the same policy."""
+    jc, jp, tc, np_tree = _pair("tiny", loss_chunk=8)
+    jc = dataclasses.replace(jc, remat=True, remat_policy=policy)
+    toks, tgt = _batch()
+    want, jgrads = jax.value_and_grad(
+        lambda p: jax_llama_loss(jc, p, jnp.asarray(toks),
+                                 jnp.asarray(tgt)))(jp)
+    out = {}
+    for pol in ("full", policy):
+        cfg = dataclasses.replace(tc, remat=True, remat_policy=pol)
+        tp = params_from_jax(cfg, np_tree, device="cpu", trainable=True)
+        loss = llama_loss(cfg, tp, torch.from_numpy(toks).long(),
+                          torch.from_numpy(tgt).long())
+        loss.backward()
+        out[pol] = (loss.detach(), tp)
+    (l0, full), (l1, tp) = out["full"], out[policy]
+    assert torch.equal(l0, l1)
+    for (name, p0), p1 in zip(full.named_parameters(), tp.parameters()):
+        assert torch.equal(p0.grad, p1.grad), name
+    np.testing.assert_allclose(float(l1), float(want), rtol=1e-5)
+    _assert_tree(tp, jgrads, "grad", atol=2e-6, rtol=1e-4)
+
+
+class _CountProducts(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.calls = {"mm": 0, "bmm": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.calls:
+            self.calls[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+# policy -> (attention forwards, norm calls) per layer in one forward and
+# backward: a checkpointed block runs its attention and two norms again,
+# save_attn keeps the attention's residuals, no checkpoint runs each once.
+_POLICY_CALLS = {"full": (2, 4), "save_attn": (1, 4), "save_dots": (2, 4),
+                 "save_dots_no_batch": (2, 4), "xla_cse": (1, 2),
+                 "cse_save_attn": (1, 2)}
+
+
+def _policy_counts(policy, monkeypatch):
+    """(attention forwards, norm calls, {"mm", "bmm"} products) of one
+    ``llama_loss`` and its backward on the tiny model (2 layers)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention
+
+    calls = {"attn": 0, "norm": 0}
+
+    def counted(key, fn):
+        def wrapper(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(attention, "_forward",
+                        counted("attn", attention._forward))
+    monkeypatch.setattr(llama, "rms_norm", counted("norm", llama.rms_norm))
+    _, _, tc, np_tree = _pair("tiny", loss_chunk=8)
+    cfg = dataclasses.replace(tc, remat=True, remat_policy=policy)
+    tp = params_from_jax(cfg, np_tree, device="cpu", trainable=True)
+    toks, tgt = (torch.from_numpy(a).long() for a in _batch(B=2, S=16))
+    with _CountProducts() as products:
+        llama_loss(cfg, tp, toks, tgt).backward()
+    return calls["attn"], calls["norm"], products.calls
+
+
+@pytest.mark.parametrize("policy", _POLICIES)
+def test_remat_policy_recomputes_what_it_should(policy, monkeypatch):
+    """The attention forward (K1 on the card) runs once a layer under
+    save_attn and with no checkpoint, twice otherwise; the norms (K4) run
+    twice a layer without a checkpoint, four times with one, plus the
+    final norm.  save_dots keeps the projections' products (aten.mm after
+    a view), so its backward runs 6 a layer fewer than full's, whose
+    recompute stops before the last projection (w2: nothing the backward
+    needs comes after it); save_dots_no_batch keeps those too, but
+    recomputes the batched products (aten.bmm: the CPU attention's
+    einsums)."""
+    L = 2
+    attn, norm, products = _policy_counts(policy, monkeypatch)
+    k1, k4 = _POLICY_CALLS[policy]
+    assert (attn, norm) == (k1 * L, k4 * L + 1)
+    if policy.startswith("save_dots"):
+        _, _, full = _policy_counts("full", monkeypatch)
+        assert products["mm"] == full["mm"] - 6 * L
+        _, _, dots = _policy_counts("save_dots", monkeypatch)
+        if policy == "save_dots":
+            assert products["bmm"] < full["bmm"]
+        else:
+            assert products["bmm"] == full["bmm"] > dots["bmm"]
 
 
 @pytest.mark.parametrize("count", [0, 1, 4, 5, 9, 20, 30])
