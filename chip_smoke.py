@@ -42,7 +42,25 @@ no result line):
    once, 4 admitted while those decode); checks counts, page balance and
    greedy agreement with ``generate``; then a warm 8-request window under
    the profiler: wall, prefill and device busy time of that one window.
-9. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
+9. observe: serving observability on the same model.  A default-built
+   engine (recording and prefix cache on), warmed under RT_DEBUG_JIT=1 so
+   the recompile sentinel is armed, serves the serve phase's mix in one
+   forced root trace: no RecompileError and no new program signature;
+   three stage spans per request under the root, the decode spans' tokens
+   equal to those streamed, TTFT from the spans within 10 ms of the
+   engine's, the stage breakdown printed; 17-field step records admitting
+   every request, none dropped, the last one's pages adding up to the
+   pool; the token, prefill-token, completion and TTFT metric deltas equal
+   to the engine's counts, every engine metric in the Prometheus text;
+   devmem pools summing to the allocator's live bytes, the weights' and
+   the KV pool's bytes exact, the limit the card's memory; one
+   ``device_trace`` window over 8 decode steps, which must write its trace
+   file (its idle share beside the serve-profile window's; up to three
+   windows, "not measured" if CUPTI records no device activity in any);
+   then the same mix with ``step_record`` on, off, off, on, twice
+   (tokens/s, the p50 inter-token latency and the host time of each
+   record).
+10. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
    The tiny model in fp32 (prefix cache on, 2 adapters): a 48-token
    shared prefix with six tails and a fork inside its second page, over
    the base model and both adapters, served twice; greedy tokens equal to
@@ -57,25 +75,25 @@ no result line):
    prompt served alone from the cache and cold.  K1 is timed at a suffix
    shape (Sq 64, Sk 576, q_offset 384) beside the plain version and SDPA
    with an explicit boolean mask.
-10. train: the serving model is freed; ``make_train_step(llama_loss)``
+11. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind).
-11. remat: on the same model and optimizer state, ``full`` (the others'
+12. remat: on the same model and optimizer state, ``full`` (the others'
    reference in this phase), then each of ``save_attn``, ``save_dots``,
    ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
    policy that would not fit runs last on a fresh model at the deepest
    depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
    memory, allocator retries, SM clock) and one step under the profiler
    (idle share, time by kernel kind).
-12. train check: a 2-layer full-width model's loss and every gradient in
+13. train check: a 2-layer full-width model's loss and every gradient in
    bf16 (K4's backward included) against the same weights in fp32 on the
    CPU through the plain path (B=1, S=256); then under each of the six
    remat policies a 2-layer model's loss and gradients at S=2048 against
    ``full``'s on the card (bit-identical, or within 2^-8).
-13. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+14. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
    6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
    ``moe_apply`` forward, 2 warm and 5 timed
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
@@ -85,15 +103,15 @@ no result line):
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
-14. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+15. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
 
 Kernel launch counters are zeroed just before the tiny serve, the
-forward, the serve, the multitenant, the train, each remat policy's and
-the moe paths run and read just after: K1 and K4's forward must have
-launched on the tiny serve, forward and serve paths (K4's backward
-never), on the multitenant path K1 once a layer per prefill and K4's
-forward once a norm per program call.  Per layer and step a train step
+forward, the serve, the observe mix, the multitenant, the train, each
+remat policy's and the moe paths run and read just after: K1 and K4's
+forward must have launched on the tiny serve, forward, serve and observe
+paths (K4's backward never), on the multitenant path K1 once a layer per
+prefill and K4's forward once a norm per program call.  Per layer and step a train step
 with remat full (Llama's and MoE's) launches K1 and, per norm, K4's
 forward twice (forward and remat recompute), K2, K3 and K4's backward
 once, plus the final norm once each way; ``save_attn`` launches K1 once,
@@ -109,10 +127,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import glob
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1048,22 +1070,26 @@ def _forward(torch, report, seed: int):
     return cfg, params
 
 
-def phase_serve(torch, report, cfg, params, seed: int):
-    from ray_tpu_torch.models.generate import generate
-    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
-
-    ecfg = EngineConfig(batch_slots=8, page_size=16, max_prompt_len=512,
-                        max_new_tokens_cap=64, prefix_cache=False)
-    engine = InferenceEngine(cfg, params, ecfg, seed=seed)
+def _serve_mix_prompts(cfg, seed: int):
+    """The serving cell's mix (``PERF.md`` section 4): 8 prompts of 16-512
+    tokens, then 4 more that arrive while those decode; as (prompts,
+    temperatures, how many come first)."""
     rng = np.random.default_rng(seed)
-    new = 32
     first = [(16, 0.0), (40, 0.8), (77, 0.0), (128, 0.8), (200, 0.0),
              (256, 0.0), (380, 0.8), (512, 0.0)]
     late = [(24, 0.8), (96, 0.0), (300, 0.8), (512, 0.0)]
-    check_idx = 5  # 256 tokens = a prefill bucket, greedy
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n, _ in first + late]
-    temps = [t for _, t in first + late]
+    return prompts, [t for _, t in first + late], len(first)
+
+
+def _serve_mix(engine, prompts, temps, n_first: int, new: int):
+    """Submit the first ``n_first`` requests, then the rest once those all
+    decode, each consumed on its own thread; every stream must finish with
+    ``new`` tokens in the vocabulary.  Returns ([(tokens, ttft_s,
+    stream)] in submit order, wall seconds, active slots when the late
+    requests arrived)."""
+    vocab = engine.model_config.vocab_size
     results = [None] * len(prompts)
     errors = []
     started = threading.Event()
@@ -1074,43 +1100,58 @@ def phase_serve(torch, report, cfg, params, seed: int):
             for tok in stream:
                 toks.append(tok)
                 started.set()
-            results[i] = (toks, stream.ttft_s)
+            results[i] = (toks, stream.ttft_s, stream)
         except Exception as e:  # noqa: BLE001: reported below
             errors.append((i, repr(e)))
             started.set()
 
+    t0 = time.perf_counter()
+    threads = []
+
+    def submit(i):
+        s = engine.submit(prompts[i], max_new_tokens=new,
+                          temperature=temps[i])
+        threads.append(threading.Thread(target=consume, args=(i, s)))
+        threads[-1].start()
+
+    for i in range(n_first):
+        submit(i)
+    check(started.wait(600), "no token within 600 s")
+    deadline = time.time() + 600
+    while (engine.stats()["active_seqs"] < n_first and not errors
+           and time.time() < deadline):
+        time.sleep(0.005)
+    active_at_late = engine.stats()["active_seqs"]
+    for i in range(n_first, len(prompts)):
+        submit(i)
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "a stream did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    check(not errors, f"stream errors: {errors}")
+    for i, (toks, _, _) in enumerate(results):
+        check(len(toks) == new, f"request {i}: {len(toks)} tokens, "
+                                f"expected {new}")
+        check(all(0 <= t < vocab for t in toks),
+              f"request {i}: token out of range")
+    return results, wall, active_at_late
+
+
+def phase_serve(torch, report, cfg, params, seed: int):
+    from ray_tpu_torch.models.generate import generate
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(batch_slots=8, page_size=16, max_prompt_len=512,
+                        max_new_tokens_cap=64, prefix_cache=False)
+    engine = InferenceEngine(cfg, params, ecfg, seed=seed)
+    new = 32
+    check_idx = 5  # 256 tokens = a prefill bucket, greedy
+    prompts, temps, n_first = _serve_mix_prompts(cfg, seed)
     try:
         _reset_counts()
-        t0 = time.perf_counter()
-        threads = []
-        for i in range(len(first)):
-            s = engine.submit(prompts[i], max_new_tokens=new,
-                              temperature=temps[i])
-            threads.append(threading.Thread(target=consume, args=(i, s)))
-            threads[-1].start()
-        check(started.wait(600), "no token within 600 s")
-        # The late four arrive while the first eight decode.
-        deadline = time.time() + 600
-        while (engine.stats()["active_seqs"] < len(first) and not errors
-               and time.time() < deadline):
-            time.sleep(0.005)
-        active_at_late = engine.stats()["active_seqs"]
-        for i in range(len(first), len(prompts)):
-            s = engine.submit(prompts[i], max_new_tokens=new,
-                              temperature=temps[i])
-            threads.append(threading.Thread(target=consume, args=(i, s)))
-            threads[-1].start()
-        for th in threads:
-            th.join(timeout=600)
-            check(not th.is_alive(), "a stream did not finish in 600 s")
-        wall = time.perf_counter() - t0
+        results, wall, active_at_late = _serve_mix(engine, prompts, temps,
+                                                   n_first, new)
         counts = _read_counts()
-        check(not errors, f"stream errors: {errors}")
-        for i, (toks, _) in enumerate(results):
-            check(len(toks) == new, f"request {i}: {len(toks)} tokens, "
-                                    f"expected {new}")
-            check(all(0 <= t < cfg.vocab_size for t in toks),
-                  f"request {i}: token out of range")
         deadline = time.time() + 10
         while (engine.allocator.free_count != engine.allocator.total
                and time.time() < deadline):
@@ -1200,6 +1241,317 @@ def phase_serve_profile(torch, report, cfg, params, seed: int):
                                "decode_steps": steps, "device_busy_ms": busy,
                                "idle_share": 1 - busy / wall_ms,
                                "top_kernels_ms": dict(top)}
+
+
+def _trace_busy(log_dir: str):
+    """(device busy ms, kernels) of the Chrome trace that
+    ``profiling.device_trace`` wrote into ``log_dir``: the summed duration
+    of its kernel, memcpy and memset events."""
+    paths = glob.glob(f"{log_dir}/*.pt.trace.json")
+    check(len(paths) == 1, f"device_trace wrote {paths} into {log_dir}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sum(e["dur"] for e in dev) / 1e3, sum(
+        e.get("cat") == "kernel" for e in dev)
+
+
+def _observe_mix(engine, prompts, temps, n_first, new):
+    """One run of the serving mix; (tokens/s, p50 of the engine-side
+    inter-token latencies in ms, which is one decode step's wall as each
+    token saw it, admission prefills included where they fall)."""
+    results, wall, _ = _serve_mix(engine, prompts, temps, n_first, new)
+    itls = sorted(x for r in results for x in r[2]._req.itls)
+    return sum(len(r[0]) for r in results) / wall, \
+        itls[len(itls) // 2] * 1e3
+
+
+def phase_observe(torch, report, cfg, params, seed: int):
+    """Serving observability on full Llama-3-8B: a default-built engine
+    (recording on, prefix cache on) serves the serving mix with the
+    recompile sentinel armed, under one forced root trace; its spans, step
+    records, metric deltas, device-memory pools and one device_trace
+    window are held to the engine; then the recorder's cost, on and off in
+    turns on the same engine."""
+    from ray_tpu_torch.devtools import jitguard
+    from ray_tpu_torch.models import paged
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+    from ray_tpu_torch.util import (devmem, metrics, profiling, steprec,
+                                    trace_analysis, tracing)
+
+    ecfg = EngineConfig(batch_slots=8, page_size=16, max_prompt_len=512,
+                        max_new_tokens_cap=64)
+    check(ecfg.prefix_cache and ecfg.step_record,
+          "the default EngineConfig records and caches")
+    new = 32
+    prompts, temps, n_first = _serve_mix_prompts(cfg, seed)
+    counted = ("ray_tpu_gen_tokens_total",
+               "ray_tpu_gen_prefill_tokens_total",
+               "ray_tpu_serve_engine_completed_total")
+
+    def totals():
+        out = {n: sum(r["value"] for r in metrics.get_counter(n)._snapshot())
+               for n in counted}
+        out["ttft_count"] = sum(r["count"] for r in metrics.get_histogram(
+            "ray_tpu_serve_engine_ttft_seconds")._snapshot())
+        return out
+
+    os.environ[jitguard.ENV_FLAG] = "1"
+    log_dir = ""
+    engine = InferenceEngine(cfg, params, ecfg, seed=seed)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        check(jitguard.armed(), "warmup did not arm the recompile sentinel")
+        traces0 = paged.trace_counts()
+        steprec.drain_buffered()
+        tracing.drain_buffered()
+        dropped0 = steprec.dropped_total()
+        m0, prefill0 = totals(), engine.prefill_tokens
+        _reset_counts()
+        # Any signature first met from here raises RecompileError on the
+        # stream that met it, which _serve_mix fails on.
+        with tracing.trace("chip:observe", force=True) as root:
+            results, wall, _ = _serve_mix(engine, prompts, temps, n_first,
+                                          new)
+        engine._run_on_loop(lambda: None)  # the last step has recorded
+        counts = _read_counts()
+        m1 = totals()
+        traces1 = paged.trace_counts()
+        check(traces1 == traces0, f"a program met a new signature after "
+                                  f"warmup: {traces0} -> {traces1}")
+        check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
+              and counts["rms_norm_bwd"] == 0,
+              f"observe path did not launch K1 and K4's forward (and K4's "
+              f"backward never): {counts}")
+        print(f"[observe] 12 requests x {new} tokens under RT_DEBUG_JIT=1: "
+              f"no RecompileError; wall {wall:.2f} s; trace_counts "
+              f"{traces1}; compile_stats {devmem.compile_stats()}; "
+              f"launches {counts}")
+
+        # Spans: three stages per request, parented to the root.
+        spans = [sp for sp in tracing.drain_buffered()
+                 if sp["trace_id"] == root["trace_id"]]
+        stages = {n: sorted((sp for sp in spans if sp["name"] == n),
+                            key=lambda sp: (sp["attrs"]["prompt_len"]
+                                            if "prompt_len" in sp["attrs"]
+                                            else 0, sp["start"]))
+                  for n in ("engine:queue", "engine:prefill",
+                            "engine:decode")}
+        for name, group in stages.items():
+            check(len(group) == len(prompts),
+                  f"{len(group)} {name} spans for {len(prompts)} requests")
+            check(all(sp["parent_id"] == root["span_id"] for sp in group),
+                  f"a {name} span is not parented to the root")
+        streamed = sum(len(r[0]) for r in results)
+        check(all(sp["attrs"]["tokens"] == new
+                  for sp in stages["engine:decode"])
+              and sum(sp["attrs"]["tokens"] for sp in stages[
+                  "engine:decode"]) == streamed,
+              "decode spans' tokens differ from the tokens streamed")
+        # Pair each request with its queue and prefill spans by prompt
+        # length, then submit order (two prompts have 512 tokens).
+        order = sorted(range(len(prompts)),
+                       key=lambda i: (len(prompts[i]), i))
+        dev_ms = []
+        for i, q, pf in zip(order, stages["engine:queue"],
+                            stages["engine:prefill"]):
+            check(q["attrs"]["prompt_len"] == pf["attrs"]["prompt_len"]
+                  == len(prompts[i]), "spans do not pair with requests")
+            dev_ms.append(abs(pf["end"] - q["start"] - results[i][1]) * 1e3)
+        ttft_tol_ms = 10.0
+        check(max(dev_ms) <= ttft_tol_ms,
+              f"TTFT from spans differs from the engine's by "
+              f"{max(dev_ms):.3f} ms (tolerance {ttft_tol_ms} ms)")
+        breakdown = trace_analysis.stage_breakdown(spans)
+        req_s = sum(breakdown.get(k, 0.0)
+                    for k in ("queue", "prefill", "decode"))
+        shares = {k: breakdown.get(k, 0.0) / req_s
+                  for k in ("queue", "prefill", "decode")}
+        print(f"[observe] spans: 3 x {len(prompts)} stage spans under the "
+              f"root; TTFT from spans vs the engine's: max |diff| "
+              f"{max(dev_ms):.3f} ms; stage breakdown (request-seconds) "
+              + ", ".join(f"{k} {breakdown.get(k, 0.0):.3f} s "
+                          f"({shares[k]:.3f})" for k in shares))
+
+        # Step records.
+        recs = [r for r in steprec.drain_buffered()
+                if r["engine"] == engine.engine_id]
+        fields = {"t", "engine", "step", "wall_s", "stall_s", "occupancy",
+                  "slots", "admitted", "evicted", "shed", "queued",
+                  "pages_used", "pages_free", "pages_shared", "prefix_hits",
+                  "adapter_pins", "tenants"}
+        check(recs and all(set(r) == fields for r in recs),
+              "step records miss fields")
+        check(sum(r["admitted"] for r in recs) == len(prompts),
+              f"records admitted {sum(r['admitted'] for r in recs)} of "
+              f"{len(prompts)}")
+        check(steprec.dropped_total() == dropped0, "step records dropped")
+        check(recs[-1]["pages_used"] + recs[-1]["pages_free"]
+              == engine.allocator.total, f"last record's pages do not add "
+                                         f"up to the pool: {recs[-1]}")
+        walls = sorted(r["wall_s"] for r in recs if r["occupancy"] > 0)
+        print(f"[observe] {len(recs)} step records, 17 fields each, "
+              f"admitted {len(prompts)}, none dropped; decode-step wall "
+              f"p50 {walls[len(walls) // 2] * 1e3:.2f} ms")
+
+        # Metrics against the engine.
+        d = {k: m1[k] - m0[k] for k in m1}
+        prefilled = engine.prefill_tokens - prefill0
+        check(prefilled == sum(
+            sp["attrs"]["prompt_len"] - sp["attrs"]["cached_prefix"]
+            for sp in stages["engine:prefill"]),
+            "prefill tokens differ from the prefill spans'")
+        check(d["ray_tpu_gen_tokens_total"] == streamed
+              and d["ray_tpu_gen_prefill_tokens_total"] == prefilled
+              and d["ray_tpu_serve_engine_completed_total"] == len(prompts)
+              and d["ttft_count"] == len(prompts),
+              f"metric deltas {d} disagree with the engine (tokens "
+              f"{streamed}, prefilled {prefilled}, requests "
+              f"{len(prompts)})")
+        text = metrics.prometheus_text(metrics.snapshot_rows())
+        names = counted + ("ray_tpu_serve_engine_ttft_seconds",
+                           "ray_tpu_serve_engine_itl_seconds",
+                           "ray_tpu_engine_stall_seconds_total",
+                           "ray_tpu_gen_kv_pages_in_use",
+                           "ray_tpu_serve_engine_queue_depth",
+                           "ray_tpu_serve_engine_active_seqs")
+        missing = [n for n in names if f"# TYPE {n} " not in text]
+        check(not missing, f"prometheus text lacks {missing}")
+        print(f"[observe] metric deltas {d}; prometheus text "
+              f"{len(text.splitlines())} lines")
+
+        # Device memory.
+        snap = devmem.snapshot()
+        pools = snap["pools"]
+        weights = sum(p.nbytes for p in params.parameters())
+        c = cfg
+        kv = (2 * c.n_layers * (engine.allocator.total + 1) * c.n_kv_heads
+              * ecfg.page_size * c.head_dim * c.dtype.itemsize)
+        limit = torch.cuda.get_device_properties(0).total_memory
+        check(sum(pools.values()) == snap["live_bytes"],
+              "pools do not sum to live_bytes")
+        check(pools["model_weights"] == weights,
+              f"model_weights {pools['model_weights']} != {weights}")
+        check(pools["kv_pool"] == kv, f"kv_pool {pools['kv_pool']} != {kv}")
+        check(snap["devices"][0]["bytes_limit"] == limit,
+              f"bytes_limit {snap['devices'][0]} != {limit}")
+        peak = snap["devices"][0]["peak_bytes_in_use"]
+        print(f"[observe] devmem: live {snap['live_bytes'] / 1e9:.3f} GB = "
+              + " + ".join(f"{k} {v / 1e9:.4f}" for k, v in pools.items())
+              + f" GB; peak {peak / 1e9:.3f} GB of {limit / 1e9:.2f} GB")
+
+        # One device_trace window over 8 decode steps.  It must write its
+        # trace file.  CUPTI has recorded no device activity in a whole
+        # process's windows on the H100 machine (three in a row, while the
+        # same windows held ~17,000 kernels in two other processes): then
+        # the busy and idle share are not measured, and the run says so.
+        log_dir = tempfile.mkdtemp(prefix="observe_trace_")
+        busy_ms, n_kernels, attempts = 0.0, 0, 0
+        while attempts < 3 and not n_kernels:
+            attempts += 1
+            streams = [engine.submit(p, max_new_tokens=64)
+                       for p in prompts[:8]]
+            firsts = [next(st) for st in streams]
+            check(len(firsts) == 8, "profiled requests did not start")
+            while engine.stats()["active_seqs"] < 8:
+                time.sleep(0.001)
+            dir_a = os.path.join(log_dir, str(attempts))
+            with profiling.device_trace(dir_a):
+                torch.cuda.synchronize()
+                tw = time.perf_counter()
+                s0 = engine.step_count
+                while engine.step_count < s0 + 8:
+                    time.sleep(0.0005)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - tw) * 1e3
+                steps = engine.step_count - s0
+            for st in streams:
+                list(st)
+            busy_ms, n_kernels = _trace_busy(dir_a)
+            if not n_kernels:
+                print("[observe] the trace holds no kernel; tracing again",
+                      flush=True)
+        idle = 1 - busy_ms / window_ms if n_kernels else None
+        what = (f"{n_kernels} kernels, device busy {busy_ms:.1f} ms of "
+                f"{window_ms:.1f} ms (idle share {idle:.3f})" if n_kernels
+                else "CUPTI recorded no device activity, so busy and idle "
+                     "share are not measured")
+        print(f"[observe] device_trace over {steps} decode steps wrote its "
+              f"trace ({attempts} window(s)): {what}; the serve-profile "
+              f"window's idle share "
+              f"{report['serve_profile']['idle_share']:.3f}")
+        out.update(
+            requests=len(prompts), wall_s=wall, launches=counts,
+            trace_counts=traces1, compile_stats=devmem.compile_stats(),
+            stage_s={k: breakdown.get(k, 0.0) for k in shares},
+            stage_shares=shares, ttft_span_diff_ms_max=max(dev_ms),
+            records=len(recs), step_wall_p50_ms=walls[len(walls) // 2] * 1e3,
+            metric_deltas=d, prefilled=prefilled,
+            devmem={"live_bytes": snap["live_bytes"], "pools": pools,
+                    "device": snap["devices"][0]},
+            trace_window={"steps": steps, "wall_ms": window_ms,
+                          "windows": attempts, "kernels": n_kernels,
+                          "device_busy_ms": busy_ms if n_kernels else None,
+                          "idle_share": idle})
+
+        # The recorder's cost: the same mix, recording on and off in turns
+        # (two rounds of on, off, off, on) on this engine, each run from a
+        # cold prefix cache; in the runs with recording on, the host time
+        # of each _record_step call is read too.
+        cost = []
+        spent = []
+        record_step = engine._record_step
+
+        def timed_record(*a, **kw):
+            t = time.perf_counter()
+            record_step(*a, **kw)
+            spent.append(time.perf_counter() - t)
+
+        engine._record_step = timed_record
+        for on in (True, False, False, True) * 2:
+            check(_balanced(engine), "pages leaked between runs")
+            engine.config.step_record = on
+            steprec.drain_buffered()
+            spent.clear()
+            tps, itl_p50 = _observe_mix(engine, prompts, temps, n_first, new)
+            engine._run_on_loop(lambda: None)
+            n_rec = sum(r["engine"] == engine.engine_id
+                        for r in steprec.drain_buffered())
+            check((n_rec > 0) == on and len(spent) == n_rec,
+                  f"step_record={on} but {n_rec} records, {len(spent)} "
+                  f"calls")
+            rec_us = sum(spent) / len(spent) * 1e6 if spent else 0.0
+            cost.append({"step_record": on, "tokens_per_s": tps,
+                         "itl_p50_ms": itl_p50, "records": n_rec,
+                         "record_us": rec_us})
+            print(f"[observe] step_record={on}: {tps:.2f} tokens/s, decode "
+                  f"step p50 {itl_p50:.3f} ms, {n_rec} records"
+                  + (f" at {rec_us:.1f} us of host time each" if on
+                     else ""))
+        engine.config.step_record = True
+        del engine._record_step
+        out["recorder_cost"] = cost
+        mean = {on: np.mean([c["tokens_per_s"] for c in cost
+                             if c["step_record"] == on])
+                for on in (True, False)}
+        on_runs = [c for c in cost if c["step_record"]]
+        rec_share = np.mean([c["record_us"] / (c["itl_p50_ms"] * 1e3)
+                             for c in on_runs])
+        print(f"[observe] recorder cost: {mean[True]:.2f} tokens/s on vs "
+              f"{mean[False]:.2f} off ({mean[True] / mean[False] - 1:+.4f}); "
+              f"a record's host time is {rec_share:.5f} of the p50 step")
+        out["recorder_share_of_step"] = rec_share
+    finally:
+        engine.shutdown()
+        if log_dir:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        os.environ.pop(jitguard.ENV_FLAG, None)
+        jitguard.disarm()
+    report["observe"] = out
 
 
 def _serve_all(engine, jobs, new: int):
@@ -2314,6 +2666,7 @@ def main(argv=None) -> int:
     cfg, params = phase_forward(torch, report, args.seed)
     phase_serve(torch, report, cfg, params, args.seed)
     phase_serve_profile(torch, report, cfg, params, args.seed)
+    phase_observe(torch, report, cfg, params, args.seed)
     phase_multitenant(torch, report, cfg, params, args.seed)
     del params  # the serving model makes room for training
     gc.collect()
@@ -2336,7 +2689,8 @@ def main(argv=None) -> int:
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
-             for path in ("tiny_serve", "forward", "serve", "multitenant",
+             for path in ("tiny_serve", "forward", "serve", "observe",
+                          "multitenant",
                           "train", "remat", "moe")}
     bwd = report["flash_bwd"]["main"]
     kernels = []

@@ -27,11 +27,14 @@ PyTorch runs eagerly: where JAX donates the pools, the port writes K/V into
 them in place (``index_put_`` through a per-layer view) and returns the same
 tensors.  The PRNG key becomes a ``torch.Generator`` on the pools' device,
 advanced in place by each sampling call and returned in the key's place.
-``trace_count(name)`` counts the distinct signatures a program has run with
-(the shapes, dtypes and devices of its tensor arguments and its static
-config): the port's counterpart of a jit specialization, so it stays flat
-after warmup as the JAX package's does.  ``call_count(name)`` counts
-calls.
+The first run of a program with a new signature (the shapes, dtypes and
+devices of its tensor arguments and its static config) is the port's
+counterpart of a jit specialization: it bumps the program's count in the
+recompile sentinel's registry (``devtools/jitguard.py``), which raises
+``RecompileError`` there once armed under ``RT_DEBUG_JIT=1``.
+``trace_count(name)`` / ``trace_counts()`` are aliases over that registry,
+as in the JAX package, so they stay flat after warmup.  ``call_count(name)``
+counts calls.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Dict, Hashable, List, Optional, Set, Tuple
 import torch
 
 from ..device import DeviceLike
+from ..devtools import jitguard as _jitguard
 from ..ops.attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
@@ -55,33 +59,43 @@ AdapterArrays = Dict[str, torch.Tensor]
 #: The paged programs whose signatures and calls are counted.
 PAGED_PROGRAMS = ("decode", "prefill", "prefill_prefix", "page_copy",
                   "adapter_load")
+for _prog in PAGED_PROGRAMS:
+    _jitguard.register_program(_prog)
 _signatures: Dict[str, Set[Hashable]] = {n: set() for n in PAGED_PROGRAMS}
 _calls: Dict[str, int] = {n: 0 for n in PAGED_PROGRAMS}
 _count_lock = threading.Lock()
 
 
 def _record(name: str, config: Optional[LlamaConfig],
-            *tensors: torch.Tensor) -> None:
-    """One call of program ``name``: count it, and its signature (what a
+            **tensors: torch.Tensor) -> None:
+    """One call of program ``name``: count it, and if its signature (what a
     jit specialization keys on: the tensors' shapes, dtypes and devices and
-    the static config; host ints passed as data stay out) if new."""
-    sig = (config, tuple((tuple(t.shape), t.dtype, str(t.device))
-                         for t in tensors))
+    the static config; host ints passed as data stay out) is new, bump the
+    sentinel's registry, which raises ``RecompileError`` when armed (the
+    signature is then not kept, so the next call raises again, as a jit
+    trace that failed is traced again)."""
+    sig = _jitguard.signature_of(tensors)
+    key = (config, tuple(sig.items()))
     with _count_lock:
         _calls[name] += 1
-        _signatures[name].add(sig)
+        if key in _signatures[name]:
+            return
+        # stacklevel 3: the caller of the program that called _record.
+        _jitguard.bump(name, {"config": config, **sig}, stacklevel=3)
+        _signatures[name].add(key)
 
 
 def trace_count(name: str) -> int:
-    """Distinct signatures the named program (one of
-    ``PAGED_PROGRAMS``) has run with."""
-    return len(_signatures[name])
+    """Times the named program (one of ``PAGED_PROGRAMS``) met a new
+    signature: its count in the sentinel's registry."""
+    return _jitguard.count(name)
 
 
 def trace_counts() -> Dict[str, int]:
-    """Snapshot of every program's trace count."""
-    with _count_lock:
-        return {n: len(s) for n, s in _signatures.items()}
+    """Snapshot of every registered program's trace count (a nonzero delta
+    between snapshots means a program met a new signature in that
+    window)."""
+    return _jitguard.counts()
 
 
 def call_count(name: str) -> int:
@@ -160,8 +174,8 @@ def adapter_load(adapters: AdapterArrays, slot: int,
     signature covers every slot.  A packed adapter whose shapes are not
     the pool's (another rank, model or layer count) raises instead of
     broadcasting."""
-    _record("adapter_load", None, adapters["qa"], packed["qa"],
-            packed["scale"])
+    _record("adapter_load", None, adapters=adapters["qa"],
+            packed=packed["qa"], scale=packed["scale"])
     for name in _ADAPTER_KEYS:
         want = adapters[name].shape[1:]
         if packed[name].shape != want:
@@ -297,8 +311,9 @@ def paged_decode_step(config: LlamaConfig, params: Llama,
     place.  Returns (next_tokens [B] int32, new_seq_lens [B], key, pools),
     all on the pools' device: the caller's one readback per step is the
     tokens."""
-    _record("decode", config, pools["k"], adapters["qa"], tokens,
-            page_tables, seq_lens, active, temps, adapter_ids)
+    _record("decode", config, pools=pools["k"], adapters=adapters["qa"],
+            tokens=tokens, page_tables=page_tables, seq_lens=seq_lens,
+            active=active, temps=temps, adapter_ids=adapter_ids)
     B = tokens.shape[0]
     maxp = page_tables.shape[1]
     ps = pools["k"].shape[3]
@@ -370,8 +385,8 @@ def paged_prefill(config: LlamaConfig, params: Llama, pools: PagedPools,
     real ones (their K/V is masked by length until decode overwrites it).
     The pools are updated in place.  Returns (first_token 0-d int32, key,
     pools)."""
-    _record("prefill", config, pools["k"], adapters["qa"], tokens,
-            page_table, temp)
+    _record("prefill", config, pools=pools["k"], adapters=adapters["qa"],
+            tokens=tokens, page_table=page_table, temp=temp)
     _, s_pad = tokens.shape
     ps = pools["k"].shape[3]
     hkv, hd = config.n_kv_heads, config.head_dim
@@ -432,8 +447,9 @@ def paged_prefill_prefix(config: LlamaConfig, params: Llama,
     sees key 0, so this equals the JAX program's masked einsum softmax.
     The pools are updated in place.  Returns (first_token 0-d int32, key,
     pools)."""
-    _record("prefill_prefix", config, pools["k"], adapters["qa"], tokens,
-            page_table, temp)
+    _record("prefill_prefix", config, pools=pools["k"],
+            adapters=adapters["qa"], tokens=tokens, page_table=page_table,
+            temp=temp)
     _, s_pad = tokens.shape
     maxp = page_table.shape[0]
     ps = pools["k"].shape[3]
@@ -488,7 +504,7 @@ def copy_page(pools: PagedPools, src: int, dst: int) -> PagedPools:
     """Copy one page's K/V across every layer, in place (copy-on-write
     when a request diverges mid-page from a cached prefix).  ``src`` and
     ``dst`` are data: one signature covers every divergence."""
-    _record("page_copy", None, pools["k"])
+    _record("page_copy", None, pools=pools["k"])
     for name in ("k", "v"):
         pools[name][:, dst] = pools[name][:, src]
     return pools

@@ -23,18 +23,42 @@ share one batch and one decode signature.  Control ops (adapter
 registration, cache clear, warmup's direct program calls) run on the loop
 thread, which owns the pools.
 
-Not ported yet (ROADMAP.md, PyTorch/CUDA port, rest of serving): the step
-flight recorder, tracing spans and the metrics registry (plain counters on
-the engine stand in; the recent TTFT, step-wall and stall rings behind
-``slo_signals()`` are the engine's own), and the serve binding
-(``LLMServer`` / ``llm_app``).
+Observability is the JAX engine's too, through the port's own
+``util``/``devtools`` modules:
+
+- a step flight recorder (``util/steprec.py``): one fixed-size record per
+  step (the JAX engine's 17 fields, host counters only, no device sync),
+  into a bounded per-process ring, when ``EngineConfig.step_record`` is on;
+  each engine's records carry ``engine_id`` (``"<pid>.<seq>"``);
+- the ``ray_tpu_*`` instruments of the JAX engine (``util/metrics.py``),
+  same names, descriptions, tags and histogram boundaries, updated at the
+  same points;
+- per-request ``engine:queue`` / ``engine:prefill`` / ``engine:decode``
+  spans (``util/tracing.py``, ``time.time()`` walls), parented to the
+  submitter's trace context when ``submit`` ran inside a sampled trace;
+- device-memory pools (``util/devmem.py``): ``model_weights``, ``kv_pool``
+  and ``adapter_pool``, registered while the engine lives;
+- the recompile sentinel (``devtools/jitguard.py``): ``warmup()`` arms it
+  last, so under ``RT_DEBUG_JIT=1`` a program signature first met after
+  warmup raises ``RecompileError`` on the failing request's stream.  A
+  step that meets a new signature is attributed with
+  ``devmem.record_compile``: on the port that is a program's first run
+  with a signature, which on the card may include a kernel's build at
+  first use.
+
+Not ported yet (ROADMAP.md, PyTorch/CUDA port): the serve binding
+(``LLMServer`` / ``llm_app``), and the head that flushes the rings (the
+port has no runtime yet: ``steprec.drain_buffered()`` and
+``tracing.drain_buffered()`` read them).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import math
+import os
 import queue as _queue
 import threading
 import time
@@ -44,13 +68,21 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..devtools import jitguard
 from ..models.llama import Lora, _normal_, lora_init
-from ..models.paged import (PageAllocator, call_counts, copy_page,
-                            init_paged_pools, paged_decode_step,
-                            paged_prefill, paged_prefill_prefix,
+from ..models.paged import (PAGED_PROGRAMS, PageAllocator, call_counts,
+                            copy_page, init_paged_pools, paged_decode_step,
+                            paged_prefill, paged_prefill_prefix, trace_count,
                             trace_counts)
+from ..util import devmem, steprec, tracing
+from ..util.metrics import get_counter, get_gauge, get_histogram
 from .adapter_pool import AdapterPool
 from .prefix_cache import RadixPrefixCache
+
+#: Engine identity within one process: step records carry
+#: ``"<pid>.<seq>"`` so records of several engines in one process (tests,
+#: harnesses) stay apart.
+_ENGINE_SEQ = itertools.count()
 
 
 class EngineOverloadedError(Exception):
@@ -66,10 +98,10 @@ class EngineConfig:
     ``batch_slots`` times the per-sequence worst case.  ``max_adapters``
     and ``lora_rank`` shape the device adapter pool (part of every program
     signature); ``prefix_cache`` turns the radix tree over the paged KV on;
-    ``ttft_window`` sizes the recent-TTFT ring and ``step_window`` the
-    step-wall and stall rings behind ``slo_signals()``, which
-    ``step_record`` turns on (the flight recorder it also feeds in the JAX
-    package is not ported yet)."""
+    ``ttft_window`` sizes the recent-TTFT ring.  ``step_record`` turns on
+    the flight recorder (one record per step into ``util/steprec.py``'s
+    ring, host counters only) and the step-wall and stall rings behind
+    ``slo_signals()``, which ``step_window`` sizes."""
 
     batch_slots: int = 8
     page_size: int = 16
@@ -114,8 +146,10 @@ class _Request:
     __slots__ = (
         "req_id", "prompt", "max_new", "temperature", "stop_token",
         "out_q", "cancelled", "pages", "page_table", "generated",
-        "submit_t", "first_token_t", "slot", "tenant", "weight",
-        "adapter", "adapter_slot", "match", "cow_ref", "cache_hit_len",
+        "submit_t", "first_token_t", "last_token_t", "itls", "slot",
+        "trace_ctx", "submit_wall", "admit_wall", "first_wall",
+        "tenant", "weight", "adapter", "adapter_slot", "match", "cow_ref",
+        "cache_hit_len",
     )
 
     def __init__(self, req_id: int, prompt: np.ndarray, max_new: int,
@@ -132,7 +166,20 @@ class _Request:
         self.generated = 0
         self.submit_t = time.perf_counter()
         self.first_token_t: Optional[float] = None
+        self.last_token_t: Optional[float] = None
+        # Engine-side inter-token latencies: measured at emission, so they
+        # reflect decode cadence, not consumer scheduling.
+        self.itls: List[float] = []
         self.slot = -1
+        # Tracing: the submitter's span context (None when the request
+        # arrived untraced/unsampled: then the engine emits nothing) plus
+        # wall-clock transition stamps for the queue/prefill/decode spans
+        # (submit_t/first_token_t are perf_counter and can't be shared with
+        # wall-clocked spans from other threads or processes).
+        self.trace_ctx: Optional[Dict[str, str]] = None
+        self.submit_wall = 0.0
+        self.admit_wall = 0.0
+        self.first_wall = 0.0
         self.tenant = "default"
         self.weight = 1.0
         # Multi-tenant plane: the adapter this sequence decodes with (None
@@ -195,6 +242,12 @@ class InferenceEngine:
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
                              f"runs on {self.device}")
+        # A fresh engine means fresh geometry: re-registering stands the
+        # paged programs' armed baselines down (recompile sentinel) until
+        # this engine's own warmup() re-arms: an un-warmed engine's first
+        # signatures are a compile phase, not hot-path recompiles.
+        for prog in PAGED_PROGRAMS:
+            jitguard.register_program(prog)
         self.model_config = model_config
         self.params = params
         self.config = config
@@ -254,14 +307,80 @@ class InferenceEngine:
         self.prefill_tokens = 0
         self.prefill_s = 0.0  # loop seconds spent in prefill (stalling decode)
         self.prefix_hits = 0  # prefills that reused cached prefix pages
-        # Recent TTFTs, decode-step walls and admission stalls
-        # ((wall_time, stall_s)): what slo_signals() reads.
+        self._evicted_total = 0
+        self._adapter_evictions_seen = 0
+        # Instruments hoisted off the request path (registry lock).
+        self._m_tokens = get_counter(
+            "ray_tpu_gen_tokens_total",
+            "Decoded tokens emitted by the inference engine")
+        self._m_prefill = get_counter(
+            "ray_tpu_gen_prefill_tokens_total",
+            "Prompt tokens prefilled into the paged KV cache")
+        self._m_pages = get_gauge(
+            "ray_tpu_gen_kv_pages_in_use",
+            "KV cache pages currently allocated to sequences",
+            tag_keys=("pid",))
+        self._m_queue = get_gauge(
+            "ray_tpu_serve_engine_queue_depth",
+            "Requests waiting for a batch slot", tag_keys=("pid",))
+        self._m_active = get_gauge(
+            "ray_tpu_serve_engine_active_seqs",
+            "Sequences decoding in batch slots", tag_keys=("pid",))
+        self._m_shed = get_counter(
+            "ray_tpu_serve_engine_shed_total",
+            "Requests rejected by admission control (overload)")
+        self._m_completed = get_counter(
+            "ray_tpu_serve_engine_completed_total",
+            "Requests decoded to completion")
+        self._m_cancelled = get_counter(
+            "ray_tpu_serve_engine_cancelled_total",
+            "Requests cancelled mid-flight (pages reclaimed)")
+        self._m_ttft = get_histogram(
+            "ray_tpu_serve_engine_ttft_seconds",
+            "Submit-to-first-token latency",
+            boundaries=(0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10))
+        self._m_itl = get_histogram(
+            "ray_tpu_serve_engine_itl_seconds",
+            "Inter-token latency during decode",
+            boundaries=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                        0.25, 1))
+        self._m_pc_hits = get_counter(
+            "ray_tpu_serve_prefix_cache_hits_total",
+            "Prompts whose prefill reused cached KV prefix pages")
+        self._m_pc_shared = get_gauge(
+            "ray_tpu_serve_prefix_cache_pages_shared",
+            "KV pages currently held by more than one owner",
+            tag_keys=("pid",))
+        self._m_adapter_evict = get_counter(
+            "ray_tpu_serve_adapter_evictions_total",
+            "LoRA adapters evicted from the device-resident pool")
+        self._m_tenant_shed = get_counter(
+            "ray_tpu_serve_tenant_shed_total",
+            "Requests shed by weighted-fair admission, by tenant",
+            tag_keys=("tenant",))
+        self._m_stall = get_counter(
+            "ray_tpu_engine_stall_seconds_total",
+            "Decode-loop seconds spent stalled on admission prefills")
+        self._pid_tags = {"pid": str(os.getpid())}
+        # Flight recorder: engine identity, plus the recent TTFTs,
+        # decode-step walls and admission stalls ((wall_time, stall_s))
+        # that slo_signals() reads.
+        self.engine_id = f"{os.getpid()}.{next(_ENGINE_SEQ)}"
         self._ttft_recent: "collections.deque" = collections.deque(
             maxlen=cfg.ttft_window)
         self._step_walls: "collections.deque" = collections.deque(
             maxlen=max(16, cfg.step_window))
         self._stall_events: "collections.deque" = collections.deque(
             maxlen=max(16, cfg.step_window))
+        # Device-memory attribution: the engine owns the big allocations,
+        # so it names them for util/devmem snapshots.  The weights' bytes
+        # are static; the pool/adapter lambdas read the live tensors.
+        self._weights_bytes = sum(p.nbytes for p in params.parameters())
+        devmem.register_pool("model_weights", lambda: self._weights_bytes)
+        devmem.register_pool("kv_pool", lambda: sum(
+            a.nbytes for a in self.pools.values()))
+        devmem.register_pool("adapter_pool", lambda: sum(
+            a.nbytes for a in self.adapter_pool.arrays.values()))
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="llm-engine")
         self._thread.start()
@@ -311,10 +430,15 @@ class InferenceEngine:
             rec = self._tenant_rec(tenant)
             rec["weight"] = float(weight)
             rec["submitted"] += 1
+            # Capture the submitter's trace context: the loop thread emits
+            # this request's queue/prefill/decode spans against it.
+            req.trace_ctx = tracing.context_for_submit()
+            req.submit_wall = time.time()
             self._queues.setdefault(tenant, []).append(req)
             victim: Optional[_Request] = None
             if self._queued_total() > self.config.max_queue:
                 victim = self._shed_locked()
+            self._m_queue.set(self._queued_total(), tags=self._pid_tags)
             self._wake.notify()
             if victim is req:
                 raise EngineOverloadedError(
@@ -359,6 +483,8 @@ class InferenceEngine:
         victim = self._queues[heaviest].pop()
         self._tenants[heaviest]["shed"] += 1
         self.shed += 1
+        self._m_shed.inc(1)
+        self._m_tenant_shed.inc(1, tags={"tenant": heaviest})
         return victim
 
     def cancel(self, req: _Request) -> None:
@@ -373,6 +499,9 @@ class InferenceEngine:
             self._stop = True
             self._wake.notify()
         self._thread.join(timeout=10)
+        for name in ("model_weights", "kv_pool", "adapter_pool"):
+            devmem.unregister_pool(name)
+        steprec.dump_black_box(force=True)  # graceful exits get a fresh box
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -381,7 +510,7 @@ class InferenceEngine:
                 t: dict(rec, queued=len(self._queues.get(t, [])))
                 for t, rec in self._tenants.items()
             }
-        traces, calls = trace_counts(), call_counts()
+        calls = call_counts()
         return {
             "steps": self.step_count,
             "active_seqs": sum(1 for s in self.slots if s is not None),
@@ -392,9 +521,9 @@ class InferenceEngine:
             "completed": self.completed,
             "shed": self.shed,
             "cancelled": self.cancelled_count,
-            "decode_traces": traces["decode"],
-            "prefill_traces": traces["prefill"],
-            "prefill_prefix_traces": traces["prefill_prefix"],
+            "decode_traces": trace_count("decode"),
+            "prefill_traces": trace_count("prefill"),
+            "prefill_prefix_traces": trace_count("prefill_prefix"),
             "mode": self.config.mode,
             "tenants": tenants,
             "prefix_cache": (self._cache.stats()
@@ -505,7 +634,13 @@ class InferenceEngine:
         every prefill bucket (one dummy sequence each), every suffix bucket
         of the cached-prefix prefill, one page copy and one adapter load.
         Builds the CUDA kernels and records each program's signatures, so
-        serving adds none."""
+        serving adds none; under ``RT_DEBUG_JIT=1`` it then arms the
+        recompile sentinel, so a signature first met later raises
+        ``RecompileError``."""
+        # A fresh engine's warmup is a legitimate compile phase: stand the
+        # sentinel down while it runs (a previous engine in this process
+        # may have armed with other geometry), re-arm at the end.
+        jitguard.disarm()
         # max_new_tokens=2: the first token comes from the prefill; the
         # decode program runs only once a second token is needed.
         for _ in self.submit([1], max_new_tokens=2):
@@ -531,6 +666,10 @@ class InferenceEngine:
             # onto itself).
             self._run_on_loop(self._warm_prefix_path)
         self._run_on_loop(self.adapter_pool.warmup_compile)
+        # Freeze every program's trace count: decode, each prefill bucket,
+        # the copy-on-write/suffix path, adapter loads.  No-op unless
+        # RT_DEBUG_JIT is set.
+        jitguard.arm()
 
     def _warm_prefix_path(self) -> None:
         dev = self.device
@@ -619,6 +758,7 @@ class InferenceEngine:
             w = max(req.weight, 1e-9)
             self._vtime[tenant] = v_start + self._req_cost(req) / w
             self._vclock = v_start
+            req.admit_wall = time.time()
             req.pages = shared + pages
             req.match = match
             if match is not None and match.cow_src is not None:
@@ -630,12 +770,34 @@ class InferenceEngine:
             req.slot = slot
             self.slots[slot] = req
             admitted.append(req)
+        if admitted:
+            self._m_queue.set(self._queued_total(), tags=self._pid_tags)
         return admitted
+
+    def _emit_req_span(self, req: _Request, name: str, start: float,
+                       end: float, **attrs) -> None:
+        """One request-stage span (queue / prefill / decode), parented to
+        the submitter's context; buffered emission (util/tracing's ring)."""
+        if req.trace_ctx is None or start <= 0:
+            return
+        tracing.emit_span(
+            tracing.make_span(req.trace_ctx, name, start, end, **attrs))
 
     def _evict(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
         assert req is not None
+        # Decode-lifetime span: first token -> eviction.  Token count, TTFT
+        # and mean ITL ride as attrs, so per-request latency attribution is
+        # derivable from the span tree alone.
+        self._emit_req_span(
+            req, "engine:decode", req.first_wall or req.admit_wall,
+            time.time(), tokens=req.generated, reason=reason,
+            ttft_s=round(req.first_token_t - req.submit_t, 6)
+            if req.first_token_t is not None else None,
+            mean_itl_s=round(sum(req.itls) / len(req.itls), 6)
+            if req.itls else None)
         self._release(req)
+        self._evicted_total += 1
         self.slots[slot] = None
         self._page_tables[slot, :] = self.scratch
         self._seq_lens[slot] = 0
@@ -648,9 +810,11 @@ class InferenceEngine:
         if reason == "cancelled":
             self.cancelled_count += 1
             rec["cancelled"] += 1
+            self._m_cancelled.inc(1)
         elif reason in ("complete", "stop"):
             self.completed += 1
             rec["completed"] += 1
+            self._m_completed.inc(1)
         if reason == "shutdown":
             # Loudly: a truncated generation must not look complete.
             req.out_q.put(("err", RuntimeError(
@@ -679,7 +843,16 @@ class InferenceEngine:
         # Admission reserved (pinned) the slot; load the weights if this is
         # the adapter's first use since eviction.
         self.adapter_pool.ensure_loaded(req.adapter)
+        ev = self.adapter_pool.evictions
+        if ev > self._adapter_evictions_seen:
+            self._m_adapter_evict.inc(ev - self._adapter_evictions_seen)
+            self._adapter_evictions_seen = ev
         n = req.prompt.size
+        # Queue-wait span (submit -> admission into a batch slot).
+        self._emit_req_span(req, "engine:queue", req.submit_wall,
+                            req.admit_wall or req.submit_wall,
+                            prompt_len=int(n))
+        pf_start = time.time()
         dev = self.device
         prefix_len = req.cache_hit_len
         adapters = self.adapter_pool.arrays
@@ -703,7 +876,9 @@ class InferenceEngine:
                 torch.tensor(toks, device=dev), prefix_len, n, page_table,
                 req.adapter_slot, temp, self._d_key)
             self.prefix_hits += 1
+            self._m_pc_hits.inc(1)
             self.prefill_tokens += suffix.size  # only the work done
+            self._m_prefill.inc(suffix.size)
         else:
             s_pad = self._bucket_len(n)
             toks = np.zeros((1, s_pad), np.int32)
@@ -713,6 +888,7 @@ class InferenceEngine:
                 torch.tensor(toks, device=dev), n, page_table,
                 req.adapter_slot, temp, self._d_key)
             self.prefill_tokens += n
+            self._m_prefill.inc(n)
         first = int(first)  # THE prefill readback: the first token streams
         # Cache every fully frozen prompt page (decode appends past the
         # prompt, so pages wholly inside it never change again).
@@ -722,8 +898,20 @@ class InferenceEngine:
                 self._cache.insert(
                     req.adapter, req.prompt[:full * self.config.page_size],
                     [int(p) for p in req.page_table[:full]], self.allocator)
-        req.first_token_t = time.perf_counter()
-        self._ttft_recent.append(req.first_token_t - req.submit_t)
+            self._m_pc_shared.set(self.allocator.shared_count,
+                                  tags=self._pid_tags)
+        now = time.perf_counter()
+        req.first_token_t = now
+        req.last_token_t = now
+        req.first_wall = time.time()
+        # Prefill span: bucket and cached-prefix attrs make padding waste
+        # and cache effectiveness readable straight off the trace.
+        self._emit_req_span(req, "engine:prefill", pf_start, req.first_wall,
+                            bucket=int(s_pad), prompt_len=int(n),
+                            cached_prefix=int(prefix_len))
+        ttft = now - req.submit_t
+        self._m_ttft.observe(ttft)
+        self._ttft_recent.append(ttft)
         slot = req.slot
         self._page_tables[slot] = req.page_table
         self._seq_lens[slot] = n
@@ -737,6 +925,7 @@ class InferenceEngine:
     def _emit_token(self, req: _Request, token: int) -> None:
         req.generated += 1
         self.tokens_emitted += 1
+        self._m_tokens.inc(1)
         req.out_q.put(("tok", token, self.step_count))
         if req.stop_token is not None and token == req.stop_token:
             self._evict(req.slot, "stop")
@@ -751,7 +940,13 @@ class InferenceEngine:
         queued and retry against the fresh pool.  The streams get the
         error once the engine is rebuilt."""
         failed = [req for req in self.slots if req is not None]
+        now_wall = time.time()
         for req in failed:
+            self._emit_req_span(
+                req, "engine:decode",
+                req.first_wall or req.admit_wall or req.submit_wall,
+                now_wall, tokens=req.generated, reason="error",
+                error=repr(exc)[:200])
             self._release(req)
         self.slots = [None] * self.config.batch_slots
         # The pools are rebuilt below, so every cached KV page and every
@@ -783,23 +978,32 @@ class InferenceEngine:
                 # Reap cancellations first: queued cancels just drop,
                 # in-flight cancels free pages before admission looks at
                 # the pool.
+                reaped = False
                 for q in self._queues.values():
                     keep = []
                     for r in q:
                         if r.cancelled.is_set():
                             self.cancelled_count += 1
                             self._tenant_rec(r.tenant)["cancelled"] += 1
+                            self._m_cancelled.inc(1)
                             r.out_q.put(
                                 ("done", "cancelled", self.step_count))
+                            reaped = True
                         else:
                             keep.append(r)
                     q[:] = keep
+                if reaped:
+                    self._m_queue.set(self._queued_total(),
+                                      tags=self._pid_tags)
                 for slot, req in enumerate(self.slots):
                     if req is not None and req.cancelled.is_set():
                         self._evict(slot, "cancelled")
                 admitted = self._admit_locked()
                 active = sum(1 for s in self.slots if s is not None)
                 if not admitted and active == 0 and not control:
+                    self._m_active.set(0, tags=self._pid_tags)
+                    self._m_pages.set(self.allocator.used_count,
+                                      tags=self._pid_tags)
                     self._wake.wait(timeout=0.05)
                     continue
             # Model work runs OUTSIDE the lock: pools/slot arrays belong
@@ -818,6 +1022,7 @@ class InferenceEngine:
             for q in self._queues.values():
                 q.clear()
             control, self._control = self._control, []
+            self._m_queue.set(0, tags=self._pid_tags)
         for task in control:
             task()
         for req in pending:
@@ -828,16 +1033,25 @@ class InferenceEngine:
                 self._evict(slot, "shutdown")
 
     def _run_step(self, admitted: List[_Request]) -> None:
+        # Flight recorder entry state: step wall, admission-stall span and
+        # per-step deltas come from host counters only: no device sync, no
+        # lock beyond what the loop already holds.
+        rec_on = self.config.step_record
         t0 = time.perf_counter()
         stall_s = 0.0
+        evicted0 = self._evicted_total
+        shed0 = self.shed
+        pc_hits0 = self.prefix_hits
+        traces0 = trace_counts() if rec_on else None
         for req in admitted:
             pf0 = time.perf_counter()
             self._prefill(req)
             stall_s += time.perf_counter() - pf0
         self.prefill_s += stall_s
-        if self.config.step_record and stall_s > 0:
-            self._stall_events.append((time.time(), stall_s))
         if not any(s is not None for s in self.slots):
+            if rec_on and admitted:
+                self._record_step(t0, stall_s, len(admitted), evicted0,
+                                  shed0, pc_hits0, traces0, decoded=False)
             return
         self.step_count += 1
         dev = self.device
@@ -862,14 +1076,68 @@ class InferenceEngine:
             self._d_active, self._d_temps, self._d_adapter_slots,
             self._d_key)
         toks = self._d_tokens.cpu().numpy()  # THE decode-step readback
+        now = time.perf_counter()
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
             self._seq_lens[slot] += 1
             self._tokens[slot] = toks[slot]
+            if req.last_token_t is not None:
+                itl = now - req.last_token_t
+                req.itls.append(itl)
+                self._m_itl.observe(itl)
+            req.last_token_t = now
             self._emit_token(req, int(toks[slot]))
-        if self.config.step_record:
-            self._step_walls.append(time.perf_counter() - t0)
+        self._m_active.set(sum(1 for s in self.slots if s is not None),
+                           tags=self._pid_tags)
+        self._m_pages.set(self.allocator.used_count, tags=self._pid_tags)
+        if rec_on:
+            self._record_step(t0, stall_s, len(admitted), evicted0,
+                              shed0, pc_hits0, traces0, decoded=True)
+
+    def _record_step(self, t0: float, stall_s: float, admitted: int,
+                     evicted0: int, shed0: int, pc_hits0: int,
+                     traces0: Optional[Dict[str, int]],
+                     decoded: bool) -> None:
+        """Append one flight-recorder record for the step that just ran.
+        Called on the loop thread; everything here is host bookkeeping
+        (the decode result was already read back for token emission)."""
+        wall_s = time.perf_counter() - t0
+        now = time.time()
+        if decoded:
+            self._step_walls.append(wall_s)
+        if stall_s > 0:
+            self._stall_events.append((now, stall_s))
+            self._m_stall.inc(stall_s)
+        # Compile observability: a trace-count bump inside this step means
+        # this step's wall paid a program's first run with a new signature
+        # (on the card, possibly a kernel's build): attribute it.
+        if traces0 is not None:
+            for prog, n in trace_counts().items():
+                if n > traces0.get(prog, 0):
+                    devmem.record_compile(prog, wall_s)
+        with self._lock:
+            queued = self._queued_total()
+            tenants = {t: len(q) for t, q in self._queues.items() if q}
+        steprec.record_step({
+            "t": round(now, 3),
+            "engine": self.engine_id,
+            "step": self.step_count,
+            "wall_s": round(wall_s, 6),
+            "stall_s": round(stall_s, 6),
+            "occupancy": sum(1 for s in self.slots if s is not None),
+            "slots": self.config.batch_slots,
+            "admitted": admitted,
+            "evicted": self._evicted_total - evicted0,
+            "shed": self.shed - shed0,
+            "queued": queued,
+            "pages_used": self.allocator.used_count,
+            "pages_free": self.allocator.free_count,
+            "pages_shared": self.allocator.shared_count,
+            "prefix_hits": self.prefix_hits - pc_hits0,
+            "adapter_pins": self.adapter_pool.pinned_count,
+            "tenants": tenants,
+        })
 
 
 def random_lora(model_config, seed: int, rank: int = 8, alpha: float = 16.0,

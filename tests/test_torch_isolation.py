@@ -48,7 +48,11 @@ def test_import_leaves_ray_tpu_unloaded():
             "ray_tpu_torch.models.generate, ray_tpu_torch.models.paged, "
             "ray_tpu_torch.models.train_state, ray_tpu_torch.models.moe, "
             "ray_tpu_torch.models.mlp, ray_tpu_torch.ops.losses, "
-            "ray_tpu_torch.serve.engine; "
+            "ray_tpu_torch.serve.engine, ray_tpu_torch.util.metrics, "
+            "ray_tpu_torch.util.tracing, ray_tpu_torch.util.steprec, "
+            "ray_tpu_torch.util.devmem, ray_tpu_torch.util.profiling, "
+            "ray_tpu_torch.util.trace_analysis, "
+            "ray_tpu_torch.devtools.jitguard; "
             "print(sorted(m for m in sys.modules if m == 'ray_tpu' "
             "or m.startswith('ray_tpu.')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
