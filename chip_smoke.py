@@ -105,6 +105,29 @@ no result line):
    margins of tokens whose choice differs.
 15. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
+16. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+   on one device, so they join a gloo group through a FileStore, gloo
+   carrying CUDA tensors through pinned host memory; the ranks load the
+   kernels phase 2 built and never run nvcc), each sub-step against its
+   unsharded reference computed first on the card by this process, at
+   Llama-3-8B's widths (``llama3_8b(max_seq=8192)``, bf16, random weights
+   from the seed), depth cut because four ranks share one card: (a) ring:
+   ``ring_attention`` forward and backward at B 1, H 32, Hkv 8, D 128,
+   causal, S 8192 over sp 4, out/dQ/dK/dV by chunk against
+   ``flash_attention`` over the whole sequence (relative norm error
+   <= 2^-7, the K2/K3 phase's bf16 bound); (b) sharded: 2 layers,
+   ``MeshConfig(fsdp=2, tp=2)``, B 2, S 2048, two ``make_train_step(
+   llama_loss)`` steps: each step's loss and grad norm and every
+   parameter after the second step, and a local wq shard a quarter of the
+   global one; (c) seq-sharded: 2 layers, ``MeshConfig(fsdp=1, sp=4)``,
+   ``sp_shard_seq``, B 1, S 8192, one step (the ring in every layer); (d)
+   pipeline: 4 layers, ``make_pp_loss`` over pp 4, 4 microbatches of B 4,
+   S 2048: the loss and every gradient; (e) moe-ep:
+   ``MoEConfig.mixtral_8x7b(n_layers=1)``, ``MeshConfig(fsdp=1, tp=2,
+   ep=2)``, B 1, S 2048, one step, with the tokens whose experts differ
+   from the reference's and their router margins.  Each rank's step time
+   is printed beside the card's name and power limit: four ranks share
+   one card, so the times are no scaling figure.
 
 Kernel launch counters are zeroed just before the tiny serve, the
 forward, the serve, the observe mix, the multitenant, the train, each
@@ -117,6 +140,10 @@ forward twice (forward and remat recompute), K2, K3 and K4's backward
 once, plus the final norm once each way; ``save_attn`` launches K1 once,
 ``save_dots`` and ``save_dots_no_batch`` as full, and no checkpoint
 (``xla_cse``) K1 and K4's forward once (``_train_launches``).
+Each rank of the parallel phase zeroes its counts just before a
+sub-step's main path and reads them just after; the parent sums them
+over the ranks, and each rank's must equal the path's count: per ring
+step and layer, K1 forward (twice under remat) and K2 and K3 backward.
 The second-to-last JSON line lists every kernel with its launches per
 path, error, times and bound; the last line is the device record.
 ``--report PATH`` also writes every phase's numbers to PATH as JSON.
@@ -2487,8 +2514,8 @@ def _routing(torch, cfg, params, tokens):
 
     rec, original = [], moe._route
 
-    def recording(config, router, xf):
-        out = original(config, router, xf)
+    def recording(*args):
+        out = original(*args)
         probs, _, top_e, slot_oh = out
         rec.append((probs.float().cpu(), top_e.cpu(),
                     slot_oh.sum((0, 1, 3)).long().cpu()))
@@ -2633,6 +2660,609 @@ def phase_mlp(torch, report, seed: int, steps: int = 20):
     report["mlp"] = {"steps": steps, "wall_s": wall_s, "losses": losses}
 
 
+# ---------------------------------------------------------------- parallel
+#
+# Four ranks on the one card.  NCCL refuses two ranks on one device, so
+# they join a gloo group through a FileStore; gloo carries the collectives
+# of CUDA tensors through pinned host memory (``collective/mesh_ops.py``),
+# and every tensor of the computation stays on the card.  The ranks share
+# the card, so their step times are not a scaling figure.
+
+PAR_WORLD = 4
+#: Sub-steps of the parallel phase, in the order the ranks run them.
+PAR_STEPS = ("ring", "sharded", "seq_sharded", "pipeline", "moe_ep")
+
+
+def _par_reset():
+    """Zero the launch counts and the collectives' traffic."""
+    from ray_tpu_torch.collective import mesh_ops
+
+    _reset_counts()
+    mesh_ops.traffic.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _par_read():
+    """(launch counts, a copy of the collectives' traffic)."""
+    from ray_tpu_torch.collective import mesh_ops
+
+    return _read_counts(), dict(mesh_ops.traffic)
+
+
+def _par_gen(torch, seed: int):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _par_llama(n_layers: int):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(max_seq=8192),
+                               n_layers=n_layers)
+
+
+def _par_batch(torch, vocab: int, B: int, S: int, seed: int):
+    tokens = torch.randint(0, vocab, (B, S), generator=_par_gen(torch, seed),
+                           device="cuda")
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+
+def _par_ring_inputs(torch, seed: int):
+    """q, k, v, dO at B 1, H 32, Hkv 8, D 128, S 8192, bf16."""
+    g = _par_gen(torch, seed)
+    shapes = ((1, 32, 8192, 128), (1, 8, 8192, 128), (1, 8, 8192, 128),
+              (1, 32, 8192, 128))
+    return [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+            for s in shapes]
+
+
+#: (layers, mesh, batch, seq, steps, sp_shard_seq) of the Llama sub-steps.
+_PAR_LLAMA = {
+    "sharded": (2, dict(fsdp=2, tp=2), 2, 2048, 2, False),
+    "seq_sharded": (2, dict(fsdp=1, sp=4), 1, 8192, 1, True),
+}
+_PAR_PIPE = dict(layers=4, pp=4, n_micro=4, batch=4, seq=2048)
+_PAR_MOE = dict(layers=1, mesh=dict(fsdp=1, tp=2, ep=2), batch=1, seq=2048,
+                steps=1)
+_PAR_LR = 1e-4
+
+
+def _par_steps(torch, cfg, loss_fn, params, batch, steps, mesh=None,
+               rules=None, sp_shard_seq=False):
+    """``steps`` AdamW steps of ``make_train_step``: (state, losses, grad
+    norms, each step's seconds)."""
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer,
+                                                  make_train_step,
+                                                  shard_train_state)
+
+    tx = default_optimizer(lr=_PAR_LR)
+    state = TrainState.create(params, tx)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, rules)
+    step = make_train_step(loss_fn, tx, mesh, rules,
+                           sp_shard_seq=sp_shard_seq)
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    return state, losses, norms, times
+
+
+def _par_record_routes(moe_mod):
+    """Wrap ``moe._route`` to keep the expert choices of its first call (the
+    step's forward; the remat recompute calls it again): (records,
+    restore)."""
+    rec, original = [], moe_mod._route
+
+    def recording(*args):
+        out = original(*args)
+        if not rec:
+            rec.append((out[0].detach().float().cpu(),
+                        out[2].detach().cpu()))
+        return out
+
+    moe_mod._route = recording
+
+    def restore():
+        moe_mod._route = original
+
+    return rec, restore
+
+
+def _par_refs(torch, seed: int, tmp: str):
+    """The references, unsharded on the card in this process: each saved
+    to ``tmp`` and freed before the ranks start.  Returns their times."""
+    from ray_tpu_torch.models import moe as moe_mod
+    from ray_tpu_torch.models.llama import llama_init, llama_loss
+    from ray_tpu_torch.models.moe import MoEConfig, moe_init, moe_loss
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    times = {}
+
+    def save(name, obj):
+        torch.save(obj, os.path.join(tmp, f"{name}.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    q, k, v, do = _par_ring_inputs(torch, seed + 20)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    times["ring"] = time.perf_counter() - t0
+    save("ring", {"out": out.detach().cpu(), "dq": q.grad.cpu(),
+                  "dk": k.grad.cpu(), "dv": v.grad.cpu()})
+    del q, k, v, do, out
+
+    for name, (L, _, B, S, steps, _) in _PAR_LLAMA.items():
+        cfg = _par_llama(L)
+        params = llama_init(cfg, _par_gen(torch, seed + 21), trainable=True)
+        batch = _par_batch(torch, cfg.vocab_size, B, S, seed + 22)
+        state, losses, norms, step_s = _par_steps(
+            torch, cfg, lambda p, b: llama_loss(cfg, p, b["tokens"],
+                                                b["targets"]),
+            params, batch, steps)
+        times[name] = step_s[-1]
+        save(name, {"losses": losses, "norms": norms,
+                    "params": {n: p.detach().cpu() for n, p in
+                               state.params.named_parameters()}})
+        del params, state, batch
+
+    cfg = _par_llama(_PAR_PIPE["layers"])
+    params = llama_init(cfg, _par_gen(torch, seed + 21), trainable=True)
+    batch = _par_batch(torch, cfg.vocab_size, _PAR_PIPE["batch"],
+                       _PAR_PIPE["seq"], seed + 22)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = llama_loss(cfg, params, batch["tokens"], batch["targets"])
+    loss.backward()
+    torch.cuda.synchronize()
+    times["pipeline"] = time.perf_counter() - t0
+    save("pipeline", {"loss": float(loss.detach()),
+                      "grads": {n: p.grad.cpu() for n, p in
+                                params.named_parameters()}})
+    del params, batch, loss
+
+    cfg = MoEConfig.mixtral_8x7b(n_layers=_PAR_MOE["layers"])
+    params = moe_init(cfg, _par_gen(torch, seed + 24), trainable=True)
+    batch = _par_batch(torch, cfg.vocab_size, _PAR_MOE["batch"],
+                       _PAR_MOE["seq"], seed + 25)
+    rec, restore = _par_record_routes(moe_mod)
+    try:
+        state, losses, norms, step_s = _par_steps(
+            torch, cfg, lambda p, b: moe_loss(cfg, p, b["tokens"],
+                                              b["targets"]),
+            params, batch, _PAR_MOE["steps"])
+    finally:
+        restore()
+    times["moe_ep"] = step_s[-1]
+    save("moe_ep", {"losses": losses, "norms": norms, "probs": rec[0][0],
+                    "top_e": rec[0][1],
+                    "params": {n: p.detach().cpu() for n, p in
+                               state.params.named_parameters()}})
+    del params, state, batch
+    return times
+
+
+def _par_slices(p):
+    """The slices of the global tensor that DTensor ``p``'s local shard
+    holds (even shards; the mesh dims that split one tensor dim, outer
+    first)."""
+    from torch.distributed.tensor import Shard
+
+    idx, parts = [0] * p.ndim, [1] * p.ndim
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard):
+            n = p.device_mesh.size(i)
+            idx[pl.dim] = idx[pl.dim] * n + p.device_mesh.get_local_rank(i)
+            parts[pl.dim] *= n
+    return tuple(slice(j * d // k, (j + 1) * d // k)
+                 for j, k, d in zip(idx, parts, p.shape))
+
+
+def _par_param_err(torch, params, ref, steps: int):
+    """Every local parameter shard against the same slice of the unsharded
+    run's parameter after ``steps`` AdamW steps.  Two bf16 runs whose
+    gradients differ by rounding may move an element by up to lr (Adam's
+    step is at most ~lr an element whatever the gradient) the other way,
+    and each of their stored values is rounded to bf16 once a step (half
+    an ulp, at most 2^-8 of the value rounded): |got - ref| <= 2 steps lr
+    (1.01) + 2^-6 (|ref| + 2 steps lr) bounds it.  Compared in chunks of
+    2^24 elements, so four ranks' temporaries fit beside their states.
+    Returns (the worst |got - ref| / bound, the worst |got - ref|, tensors
+    compared)."""
+    worst_ratio, worst_abs = 0.0, 0.0
+    lr_part = 2 * steps * _PAR_LR
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            got = p.to_local().reshape(-1)
+            r = ref[name][_par_slices(p)].contiguous().reshape(-1)
+            for a in range(0, got.numel(), 1 << 24):
+                g = got[a:a + (1 << 24)].float()
+                rc = r[a:a + (1 << 24)].to(g.device).float()
+                diff = (g - rc).abs()
+                bound = lr_part * 1.01 + 2.0 ** -6 * (rc.abs() + lr_part)
+                worst_ratio = max(worst_ratio, float((diff / bound).max()))
+                worst_abs = max(worst_abs, float(diff.max()))
+    return worst_ratio, worst_abs, len(ref)
+
+
+def _par_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _par_ring(torch, rank: int, seed: int, tmp: str, mesh):
+    """(a) ``ring_attention`` forward and backward on this rank's chunk of
+    the S 8192 sequence against the reference's chunk."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+
+    q, k, v, do = _par_ring_inputs(torch, seed + 20)
+    n = 8192 // PAR_WORLD
+    rows = slice(rank * n, (rank + 1) * n)
+    q, k, v, do = (t[:, :, rows].contiguous() for t in (q, k, v, do))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    for timed in (False, True):  # a warm call, then the counted one
+        q.grad = k.grad = v.grad = None
+        _par_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention(q, k, v, axis_name="sp", causal=True,
+                             mesh=mesh)
+        out.backward(do)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, comm = _par_read()
+    ref = torch.load(os.path.join(tmp, "ring.pt"), weights_only=True,
+                     mmap=True)
+    errs = {}
+    for name, got in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                      ("dv", v.grad)):
+        r = ref[name][:, :, rows].to("cuda").float()
+        g = got.detach().float()
+        check(bool(torch.isfinite(g).all()), f"ring {name} not finite")
+        errs[name] = {"max_abs_err": float((g - r).abs().max()),
+                      "rel_norm_err": float((g - r).norm() / r.norm())}
+    return {"wall_s": wall, "launches": counts, "comm": comm, "errs": errs}
+
+
+def _par_llama_step(torch, rank: int, seed: int, tmp: str, name: str):
+    """(b) and (c): the sharded ``make_train_step(llama_loss)`` steps against
+    the unsharded ones."""
+    from ray_tpu_torch.models.llama import (llama_init, llama_loss,
+                                            llama_sharding_rules)
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    L, mcfg, B, S, steps, sp_shard_seq = _PAR_LLAMA[name]
+    cfg = _par_llama(L)
+    mesh = make_mesh(MeshConfig(**mcfg))
+    params = llama_init(cfg, _par_gen(torch, seed + 21), trainable=True)
+    batch = _par_batch(torch, cfg.vocab_size, B, S, seed + 22)
+    _par_reset()
+    state, losses, norms, step_s = _par_steps(
+        torch, cfg, lambda p, b: llama_loss(cfg, p, b["tokens"],
+                                            b["targets"]),
+        params, batch, steps, mesh, llama_sharding_rules(), sp_shard_seq)
+    counts, comm = _par_read()
+    del state  # AdamW's moments: room for the comparison
+    ref = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True,
+                     mmap=True)
+    ratio, worst, n = _par_param_err(torch, params, ref["params"], steps)
+    wq = params.layers[0].attn.wq
+    return {"step_s": step_s, "launches": counts, "comm": comm,
+            "losses": losses,
+            "norms": norms, "ref_losses": ref["losses"],
+            "ref_norms": ref["norms"], "param_ratio": ratio,
+            "param_max_abs_err": worst, "params_compared": n,
+            "wq_local": list(wq.to_local().shape), "wq": list(wq.shape)}
+
+
+def _par_pipeline(torch, rank: int, seed: int, tmp: str):
+    """(d) ``make_pp_loss`` over pp 4: the loss and every gradient this
+    rank holds against ``llama_loss``'s."""
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.parallel import (MeshConfig, make_mesh, make_pp_loss,
+                                        pp_sharding_spec, shard_pytree,
+                                        stack_layers)
+
+    c = _PAR_PIPE
+    cfg = _par_llama(c["layers"])
+    mesh = make_mesh(MeshConfig(fsdp=1, pp=c["pp"]))
+    params = llama_init(cfg, _par_gen(torch, seed + 21), trainable=True)
+    stacked = stack_layers(params)
+    del params
+    stacked = shard_pytree(stacked, mesh, pp_sharding_spec(stacked))
+    batch = _par_batch(torch, cfg.vocab_size, c["batch"], c["seq"],
+                       seed + 22)
+    loss_fn = make_pp_loss(cfg, mesh, n_micro=c["n_micro"])
+    leaves = [t for t in stacked.values() if torch.is_tensor(t)] + [
+        t for part in stacked["layers"].values()
+        for t in (part.values() if isinstance(part, dict) else [part])]
+    for timed in (False, True):  # a warm call, then the counted one
+        for t in leaves:
+            t.grad = None
+        _par_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(stacked, batch["tokens"], batch["targets"])
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, comm = _par_read()
+    ref = torch.load(os.path.join(tmp, "pipeline.pt"), weights_only=True,
+                     mmap=True)
+    per = c["layers"] // c["pp"]
+    stage = mesh.get_local_rank("pp")
+    rel = {}
+
+    def leaf(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree.grad.to_local()
+
+    for name, r in ref["grads"].items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            if i // per != stage:
+                continue
+            got = leaf(stacked["layers"], parts[2:])[i % per]
+        else:
+            got = leaf(stacked, parts)
+        check(bool(torch.isfinite(got).all()), f"pipeline {name} grad "
+                                               f"not finite")
+        # In chunks of 2^24 elements, as _par_param_err.
+        got, r = got.reshape(-1), r.reshape(-1)
+        d2 = r2 = 0.0
+        for a in range(0, got.numel(), 1 << 24):
+            g = got[a:a + (1 << 24)].float()
+            rc = r[a:a + (1 << 24)].to(g.device).float()
+            d2 += float(((g - rc) ** 2).sum())
+            r2 += float((rc ** 2).sum())
+        rel[name] = (d2 / r2) ** 0.5
+    return {"wall_s": wall, "launches": counts, "comm": comm,
+            "loss": float(loss.detach()),
+            "ref_loss": ref["loss"], "grad_rel": rel}
+
+
+def _par_moe(torch, rank: int, seed: int, tmp: str):
+    """(e) the MoE step at ep 2 x tp 2 against the unsharded step, with
+    the expert choices of its forward."""
+    from ray_tpu_torch.models import moe as moe_mod
+    from ray_tpu_torch.models.moe import (MoEConfig, moe_init, moe_loss,
+                                          moe_sharding_rules)
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    c = _PAR_MOE
+    cfg = MoEConfig.mixtral_8x7b(n_layers=c["layers"])
+    mesh = make_mesh(MeshConfig(**c["mesh"]))
+    params = moe_init(cfg, _par_gen(torch, seed + 24), trainable=True)
+    batch = _par_batch(torch, cfg.vocab_size, c["batch"], c["seq"],
+                       seed + 25)
+    rec, restore = _par_record_routes(moe_mod)
+    _par_reset()
+    try:
+        state, losses, norms, step_s = _par_steps(
+            torch, cfg, lambda p, b: moe_loss(cfg, p, b["tokens"],
+                                              b["targets"]),
+            params, batch, c["steps"], mesh, moe_sharding_rules())
+    finally:
+        restore()
+    counts, comm = _par_read()
+    del state  # AdamW's moments: room for the comparison
+    ref = torch.load(os.path.join(tmp, "moe_ep.pt"), weights_only=True,
+                     mmap=True)
+    ratio, worst, n = _par_param_err(torch, params, ref["params"],
+                                     c["steps"])
+    top = ref["probs"].sort(dim=-1, descending=True).values
+    margin = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+    flipped = (rec[0][1].sort(-1).values
+               != ref["top_e"].sort(-1).values).any(-1)
+    w1 = params.layers[0].moe.w1
+    return {"step_s": step_s, "launches": counts, "comm": comm,
+            "losses": losses,
+            "norms": norms, "ref_losses": ref["losses"],
+            "ref_norms": ref["norms"], "param_ratio": ratio,
+            "param_max_abs_err": worst, "params_compared": n,
+            "flipped_tokens": flipped.nonzero()[:, 0].tolist(),
+            "flipped_margins": margin[flipped].tolist(),
+            "min_margin": float(margin.min()),
+            "w1_local": list(w1.to_local().shape), "w1": list(w1.shape)}
+
+
+def _par_rank(rank: int, seed: int, tmp: str):
+    """One rank of the parallel phase: the five sub-steps in turn, each
+    with its launch counts zeroed just before its main path and read just
+    after; the card freed between them."""
+    import torch
+
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name in PAR_STEPS:
+        if name == "ring":
+            mesh = make_mesh(MeshConfig(fsdp=1, sp=PAR_WORLD))
+            out[name] = _par_ring(torch, rank, seed, tmp, mesh)
+        elif name in _PAR_LLAMA:
+            out[name] = _par_llama_step(torch, rank, seed, tmp, name)
+        elif name == "pipeline":
+            out[name] = _par_pipeline(torch, rank, seed, tmp)
+        else:
+            out[name] = _par_moe(torch, rank, seed, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["imports"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "ray_tpu"))
+    return out
+
+
+def _par_expected(name: str):
+    """Launches of each kernel on one rank's main path of sub-step
+    ``name``: per ring step and layer K1 forward, K2 and K3 backward."""
+    n = PAR_WORLD
+    if name == "ring":
+        return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "rms_norm": 0, "rms_norm_bwd": 0}
+    if name in _PAR_LLAMA:
+        L, mcfg, _, _, steps, sp_shard_seq = _PAR_LLAMA[name]
+        want = _train_launches(L, steps)
+        ring = mcfg.get("sp", 1) if sp_shard_seq else 1
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            want[k] *= ring
+        return want
+    if name == "pipeline":
+        c = _PAR_PIPE
+        t = (c["n_micro"] + c["pp"] - 1) * c["layers"] // c["pp"]
+        return {"flash_fwd": t, "flash_bwd_dq": t, "flash_bwd_dkv": t,
+                "rms_norm": 2 * t + 1, "rms_norm_bwd": 2 * t + 1}
+    return _train_launches(_PAR_MOE["layers"], _PAR_MOE["steps"])
+
+
+def phase_parallel(torch, report, seed: int, card: str):
+    """Ring attention, the sharded and sequence-sharded Llama steps, the
+    GPipe pipeline and the expert-parallel MoE step, by four ranks on the
+    one card, each against its unsharded reference computed first in this
+    process (see the section's comment)."""
+    from ray_tpu_torch import _build
+    from ray_tpu_torch.parallel import spawn_ranks
+
+    # The ranks load the kernels phase_build compiled; none may run nvcc.
+    missing = [n for n in _build.KERNELS if not _build._lib_path(n).exists()]
+    check(not missing, f"kernels not built before the ranks start: "
+                       f"{missing}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref_s = _par_refs(torch, seed, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(_par_rank, PAR_WORLD, seed, tmp,
+                            store=os.path.join(tmp, "store"),
+                            backend="gloo", cuda_device=0, timeout_s=600)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"refs_s": t1 - t0, "ranks_s": t2 - t1, "ref_times_s": ref_s,
+           "peak_gb": [r["peak_gb"] for r in ranks], "card": card}
+    check(all(not r["imports"] for r in ranks),
+          f"a rank imported JAX or the JAX package: "
+          f"{[r['imports'] for r in ranks]}")
+    U = 2.0 ** -8
+    tols = {"ring_rel_norm": 2 * U, "loss_rel": 1e-2, "grad_norm_rel": 2e-2,
+            "pipeline_grad_rel": 5e-2, "param_ratio": 1.0}
+    out["tolerances"] = tols
+    for name in PAR_STEPS:
+        per = [r[name] for r in ranks]
+        want = _par_expected(name)
+        counts = {k: sum(p["launches"][k] for p in per) for k in want}
+        check(all(p["launches"] == want for p in per),
+              f"parallel {name}: launches per rank "
+              f"{[p['launches'] for p in per]}, expected {want} each")
+        rec = {"launches": counts, "ranks": per,
+               "ref_s": ref_s[name]}
+        if name == "ring":
+            worst = {k: max(p["errs"][k]["rel_norm_err"] for p in per)
+                     for k in ("out", "dq", "dk", "dv")}
+            rec["worst_rel_norm_err"] = worst
+            rec["max_abs_err"] = max(p["errs"][k]["max_abs_err"]
+                                     for p in per for k in worst)
+            msg = (f"out/dQ/dK/dV relative norm error by chunk, worst "
+                   f"{json.dumps({k: round(v, 6) for k, v in worst.items()})}"
+                   f" (tol {tols['ring_rel_norm']})")
+            check(max(worst.values()) <= tols["ring_rel_norm"],
+                  f"ring attention disagrees with flash attention: {worst}")
+            times = [p["wall_s"] for p in per]
+        elif name == "pipeline":
+            loss_rel = max(_par_rel(p["loss"], p["ref_loss"]) for p in per)
+            grad = {}
+            for p in per:
+                grad.update({n: max(e, grad.get(n, 0.0))
+                             for n, e in p["grad_rel"].items()})
+            worst = sorted(grad.items(), key=lambda kv: -kv[1])[:3]
+            rec.update(loss_rel=loss_rel, grad_rel=grad,
+                       grads_compared=len(grad))
+            msg = (f"loss {per[0]['loss']:.5f} vs {per[0]['ref_loss']:.5f} "
+                   f"(rel {loss_rel:.3g}, tol {tols['loss_rel']}); "
+                   f"{len(grad)} gradients, worst rel norm err "
+                   + ", ".join(f"{n} {e:.4g}" for n, e in worst)
+                   + f" (tol {tols['pipeline_grad_rel']})")
+            check(loss_rel <= tols["loss_rel"]
+                  and max(grad.values()) <= tols["pipeline_grad_rel"]
+                  and len(grad) == 4 * 9 + 3,
+                  f"the pipeline disagrees with llama_loss: {msg}")
+            times = [p["wall_s"] for p in per]
+        else:
+            p0 = per[0]
+            loss_rel = max(_par_rel(a, b) for p in per
+                           for a, b in zip(p["losses"], p["ref_losses"]))
+            norm_rel = max(_par_rel(a, b) for p in per
+                           for a, b in zip(p["norms"], p["ref_norms"]))
+            ratio = max(p["param_ratio"] for p in per)
+            rec.update(loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                       param_ratio=ratio,
+                       param_max_abs_err=max(p["param_max_abs_err"]
+                                             for p in per))
+            msg = (f"losses {[round(x, 5) for x in p0['losses']]} vs "
+                   f"{[round(x, 5) for x in p0['ref_losses']]} (rel "
+                   f"{loss_rel:.3g}, tol {tols['loss_rel']}); grad norms "
+                   f"{[round(x, 4) for x in p0['norms']]} vs "
+                   f"{[round(x, 4) for x in p0['ref_norms']]} (rel "
+                   f"{norm_rel:.3g}, tol {tols['grad_norm_rel']}); "
+                   f"{p0['params_compared']} parameters, worst error / "
+                   f"bound {ratio:.3g} (max abs "
+                   f"{rec['param_max_abs_err']:.3g})")
+            check(loss_rel <= tols["loss_rel"]
+                  and norm_rel <= tols["grad_norm_rel"] and ratio <= 1.0,
+                  f"parallel {name} disagrees with the unsharded step: "
+                  f"{msg}")
+            if name == "sharded":
+                check(all(p["wq_local"] == [d // 2 for d in p["wq"]]
+                          for p in per),
+                      f"a local wq shard is not a quarter of "
+                      f"{p0['wq']}: {[p['wq_local'] for p in per]}")
+                msg += f"; wq local {p0['wq_local']} of {p0['wq']}"
+            if name == "moe_ep":
+                rec.update({k: p0[k] for k in ("flipped_tokens",
+                                               "flipped_margins",
+                                               "min_margin")})
+                msg += (f"; w1 local {p0['w1_local']} of {p0['w1']}; tokens "
+                        f"whose experts differ from the reference's "
+                        f"{p0['flipped_tokens'][:10]} with router margins "
+                        f"{[round(x, 5) for x in p0['flipped_margins'][:10]]}"
+                        f" (smallest margin {p0['min_margin']:.3g})")
+            times = [p["step_s"] for p in per]
+        rec["rank_times_s"] = times
+        rec["comm"] = [p["comm"] for p in per]
+        out[name] = rec
+        shown = [[round(x * 1e3, 1) for x in t] if isinstance(t, list)
+                 else round(t * 1e3, 1) for t in times]
+        c0 = per[0]["comm"]
+        msg += (f"; rank 0's collectives over the timed run: "
+                f"{c0['seconds']:.3f} s in {c0['calls']} calls, "
+                f"{c0['bytes'] / 1e9:.3f} GB handed in (gloo, through "
+                f"pinned host memory)")
+        print(f"[parallel] {name}: {msg}; per-rank "
+              + ("step times (each step)" if name in ("sharded",
+                                                      "seq_sharded",
+                                                      "moe_ep")
+                 else "time of a warm call")
+              + f" {shown} ms (four ranks share one card, not a scaling "
+              f"figure; {card}); unsharded reference "
+              f"{ref_s[name] * 1e3:.1f} ms; launches {counts}", flush=True)
+    print(f"[parallel] references {out['refs_s']:.1f} s, four ranks "
+          f"{out['ranks_s']:.1f} s (spawn included); peak memory by rank "
+          f"{[round(g, 2) for g in out['peak_gb']]} GB", flush=True)
+    report["parallel"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2686,12 +3316,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_moe_check(torch, report, moe_cfg, moe_tokens, args.seed)
     phase_mlp(torch, report, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parallel(torch, report, args.seed, card)
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
                           "multitenant",
                           "train", "remat", "moe")}
+    # The four ranks' launches on each parallel sub-step, summed.
+    paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
+                  for name in PAR_STEPS})
     bwd = report["flash_bwd"]["main"]
     kernels = []
     for name, src, replaces, main in (

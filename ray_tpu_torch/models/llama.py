@@ -14,14 +14,29 @@ Attention goes through ``flash_attention``
 (kernels K1 and, for gradients, K2/K3 on the card) and every norm through
 ``rms_norm`` (kernel K4 on the card, and for gradients K4's backward); the
 projections and the MLP stay plain ``torch.matmul``, as the JAX package
-left them to XLA.  Ring attention (``sp_ring``) is not ported yet.
+left them to XLA.
+
+Sharding: ``llama_sharding_rules`` (megatron TP x FSDP) places the weights
+as DTensors (``parallel.sharding.shard_module``).  A batch that is a
+DTensor (``make_train_step(mesh=, rules=)`` places it over dp x fsdp, and
+its sequence over sp with ``sp_shard_seq``) makes every function here run
+on this rank's local shards (``parallel.sharding.Spmd``): a weight is
+all-gathered over fsdp when used and keeps its tp shard, the projections
+are megatron column/row products with the partial sums all-reduced over
+tp, the embedding and the loss split the vocabulary over tp, and a
+sequence split over sp runs attention through ``ring_attention`` with RoPE
+at global positions.  The hand-written kernels stay local: K1 (K2/K3
+under autograd) sees this rank's heads, rows and sequence chunk, K4 its
+rows.  The values are the unsharded ones whatever ``sp_ring`` says; JAX's
+``sp_ring`` engages the ring only inside ``shard_map``, and with no sp
+axis bound it is plain flash attention, as here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,11 +44,15 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..collective import mesh_ops
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.losses import masked_nll
 from ..ops.norms import rms_norm
+from ..ops.ring_attention import ring_attention
 from ..ops.rotary import apply_rotary, rope_frequencies
+from ..parallel.mesh import AXIS_FSDP, AXIS_TP
+from ..parallel.sharding import P, ShardingRules, Spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +61,8 @@ class LlamaConfig:
     dtype.  ``flash_block_q/k`` are TPU tiling knobs the port does not read
     (the CUDA kernels' tiles are fixed, see ``ops/attention.py``);
     ``remat_policy`` is one of the JAX package's six (``_REMAT``);
-    ``sp_ring=True`` raises until ring attention is ported (ROADMAP.md)."""
+    ``sp_ring`` changes nothing on the port: a sequence split over sp
+    always runs the ring, an unsplit one K1 (module docstring)."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -242,33 +262,115 @@ def params_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
     return model.requires_grad_(trainable)
 
 
+def llama_sharding_rules() -> ShardingRules:
+    """Megatron TP x FSDP rules (2D); norms replicated."""
+    return ShardingRules([
+        (r"embed", P(AXIS_TP, AXIS_FSDP)),
+        (r"lm_head", P(AXIS_FSDP, AXIS_TP)),
+        (r"attn/(wq|wk|wv)", P(AXIS_FSDP, AXIS_TP)),
+        (r"attn/wo", P(AXIS_TP, AXIS_FSDP)),
+        (r"mlp/(w1|w3)", P(AXIS_FSDP, AXIS_TP)),
+        (r"mlp/w2", P(AXIS_TP, AXIS_FSDP)),
+        (r"norm", P()),
+        (r"lora_(a|b)", P()),  # adapters are tiny: replicate
+    ])
+
+
+# ------------------------------------------------ the sharded step's pieces
+# With ``spmd`` None (an unsharded batch) each of these is the identity or
+# the parameter itself: the unsharded path runs no op of its own here.
+
+
+def _w(spmd: Optional[Spmd], p: torch.Tensor, **keep: int) -> torch.Tensor:
+    """Parameter ``p`` as this rank computes with it (``Spmd.weight``)."""
+    return p if spmd is None else spmd.weight(p, **keep)
+
+
+def _into_tp(spmd: Optional[Spmd], x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f before a column-parallel product: x is the same on
+    every tp rank, and its gradient is the sum of the ranks' shares."""
+    if spmd is None:
+        return x
+    return mesh_ops.pvary(x, AXIS_TP, mesh=spmd.mesh)
+
+
+def _out_of_tp(spmd: Optional[Spmd], x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g after a row-parallel product: the partial sums of the
+    tp ranks added."""
+    if spmd is None:
+        return x
+    return mesh_ops.allreduce(x, AXIS_TP, mesh=spmd.mesh)
+
+
+def _lora(spmd: Optional[Spmd], x: torch.Tensor, a: torch.Tensor,
+          b: torch.Tensor, scale: torch.Tensor, width: int) -> torch.Tensor:
+    """LoRA's delta x @ A @ B * scale for the ``width`` output columns this
+    rank computes (its tp shard of the heads)."""
+    a, b, scale = (_w(spmd, t) for t in (a, b, scale))
+    if spmd is not None and spmd.size(AXIS_TP) > 1:
+        # The replicated adapter serves only this rank's heads: its
+        # gradient is the sum of the tp ranks' shares.
+        a, b, scale = (mesh_ops.pvary(t, AXIS_TP, mesh=spmd.mesh)
+                       for t in (a, b, scale))
+        lo = spmd.rank(AXIS_TP) * width
+        b = b[:, lo:lo + width]
+    return ((x @ a) @ b) * scale
+
+
+def _positions(spmd: Optional[Spmd], seq: int) -> int:
+    """Global position of this rank's first row: RoPE must see global
+    positions when the sequence is split."""
+    if spmd is None or spmd.seq_axis is None:
+        return 0
+    return spmd.rank(spmd.seq_axis) * seq
+
+
+def _attend(spmd: Optional[Spmd], q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """K1 (K2/K3 under autograd) on local tensors: this rank's heads (tp
+    splits them), rows (dp/fsdp) and, with the sequence split over sp, its
+    chunk of the sequence through the ring."""
+    if spmd is not None and spmd.seq_axis is not None:
+        return ring_attention(q, k, v, axis_name=spmd.seq_axis, causal=True,
+                              mesh=spmd.mesh)
+    return flash_attention(q, k, v, causal=True)
+
+
 def _qkv(config: LlamaConfig, x: torch.Tensor, layer: Block,
          cos: torch.Tensor, sin: torch.Tensor,
-         lora_layer: Optional["LoraLayer"] = None):
-    """The rotated q [B, H, S, D], k and v [B, Hkv, S, D] of normed x."""
+         lora_layer: Optional["LoraLayer"] = None,
+         spmd: Optional[Spmd] = None):
+    """The rotated q [B, H, S, D], k and v [B, Hkv, S, D] of normed x (this
+    rank's heads and rows under ``spmd``)."""
     B, S, d = x.shape
     hd = config.head_dim
     a = layer.attn
-    q = x @ a.wq
-    k = x @ a.wk
-    v = x @ a.wv
+    x = _into_tp(spmd, x)
+    q = x @ _w(spmd, a.wq, tp=1)
+    k = x @ _w(spmd, a.wk, tp=1)
+    v = x @ _w(spmd, a.wv, tp=1)
     if lora_layer is not None:
         # LoRA on wq/wv (standard recipe): delta = x @ A @ B * (alpha/r).
-        scale = lora_layer.scale
-        q = q + ((x @ lora_layer.wq_lora_a) @ lora_layer.wq_lora_b) * scale
-        v = v + ((x @ lora_layer.wv_lora_a) @ lora_layer.wv_lora_b) * scale
-    q = q.view(B, S, config.n_heads, hd).transpose(1, 2)
-    k = k.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
-    v = v.view(B, S, config.n_kv_heads, hd).transpose(1, 2)
-    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+        ll = lora_layer
+        q = q + _lora(spmd, x, ll.wq_lora_a, ll.wq_lora_b, ll.scale,
+                      q.shape[-1])
+        v = v + _lora(spmd, x, ll.wv_lora_a, ll.wv_lora_b, ll.scale,
+                      v.shape[-1])
+    q = q.view(B, S, -1, hd).transpose(1, 2)
+    k = k.view(B, S, -1, hd).transpose(1, 2)
+    v = v.view(B, S, -1, hd).transpose(1, 2)
+    pos = _positions(spmd, S)
+    return (apply_rotary(q, cos, sin, pos), apply_rotary(k, cos, sin, pos),
+            v)
 
 
 def _attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
                cos: torch.Tensor, sin: torch.Tensor,
-               lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
-    out = flash_attention(*_qkv(config, x, layer, cos, sin, lora_layer),
-                          causal=True)
-    return _merge_heads(out) @ layer.attn.wo
+               lora_layer: Optional["LoraLayer"] = None,
+               spmd: Optional[Spmd] = None) -> torch.Tensor:
+    out = _attend(spmd, *_qkv(config, x, layer, cos, sin, lora_layer, spmd))
+    return _out_of_tp(spmd, _merge_heads(out) @ _w(spmd, layer.attn.wo,
+                                                   tp=0))
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
@@ -277,49 +379,56 @@ def _merge_heads(out: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, S, H * D)
 
 
-def _mlp(layer: Block, x: torch.Tensor) -> torch.Tensor:
+def _mlp(layer: Block, x: torch.Tensor,
+         spmd: Optional[Spmd] = None) -> torch.Tensor:
     m = layer.mlp
-    return (torch.nn.functional.silu(x @ m.w1) * (x @ m.w3)) @ m.w2
+    x = _into_tp(spmd, x)
+    h = (torch.nn.functional.silu(x @ _w(spmd, m.w1, tp=1))
+         * (x @ _w(spmd, m.w3, tp=1)))
+    return _out_of_tp(spmd, h @ _w(spmd, m.w2, tp=0))
 
 
 def _pre_attention(config: LlamaConfig, x: torch.Tensor, layer: Block,
                    cos: torch.Tensor, sin: torch.Tensor,
-                   lora_layer: Optional["LoraLayer"] = None):
+                   lora_layer: Optional["LoraLayer"] = None,
+                   spmd: Optional[Spmd] = None):
     """A block up to attention: the norm, projections, LoRA and RoPE."""
-    h = rms_norm(x, layer.attn_norm, config.norm_eps)
-    return _qkv(config, h, layer, cos, sin, lora_layer)
+    h = rms_norm(x, _w(spmd, layer.attn_norm), config.norm_eps)
+    return _qkv(config, h, layer, cos, sin, lora_layer, spmd)
 
 
 def _post_attention(config: LlamaConfig, x: torch.Tensor,
-                    out: torch.Tensor, layer: Block) -> torch.Tensor:
+                    out: torch.Tensor, layer: Block,
+                    spmd: Optional[Spmd] = None) -> torch.Tensor:
     """A block after attention: ``wo``, the residual and the MLP half."""
-    x = x + _merge_heads(out) @ layer.attn.wo
-    h = rms_norm(x, layer.mlp_norm, config.norm_eps)
-    return x + _mlp(layer, h)
+    x = x + _out_of_tp(spmd, _merge_heads(out) @ _w(spmd, layer.attn.wo,
+                                                    tp=0))
+    h = rms_norm(x, _w(spmd, layer.mlp_norm), config.norm_eps)
+    return x + _mlp(layer, h, spmd)
 
 
 def _block(config: LlamaConfig, x: torch.Tensor, layer: Block,
            cos: torch.Tensor, sin: torch.Tensor,
-           lora_layer: Optional["LoraLayer"] = None) -> torch.Tensor:
-    out = flash_attention(
-        *_pre_attention(config, x, layer, cos, sin, lora_layer),
-        causal=True)
-    return _post_attention(config, x, out, layer)
+           lora_layer: Optional["LoraLayer"] = None,
+           spmd: Optional[Spmd] = None) -> torch.Tensor:
+    out = _attend(spmd, *_pre_attention(config, x, layer, cos, sin,
+                                        lora_layer, spmd))
+    return _post_attention(config, x, out, layer, spmd)
 
 
 def _block_full(*args) -> torch.Tensor:
     return checkpoint(_block, *args, use_reentrant=False)
 
 
-def _block_save_attn(config, x, layer, cos, sin, lora_layer):
+def _block_save_attn(config, x, layer, cos, sin, lora_layer, spmd=None):
     """JAX's ``save_only_these_names("flash_res")``: the attention
     Function runs between two checkpointed segments, so what it saves (the
     rotated q, k, v, its output and lse, JAX's ``flash_res``) is kept and
     K1 does not run again in the backward; the rest is recomputed."""
     q, k, v = checkpoint(_pre_attention, config, x, layer, cos, sin,
-                         lora_layer, use_reentrant=False)
-    out = flash_attention(q, k, v, causal=True)
-    return checkpoint(_post_attention, config, x, out, layer,
+                         lora_layer, spmd, use_reentrant=False)
+    out = _attend(spmd, q, k, v)
+    return checkpoint(_post_attention, config, x, out, layer, spmd,
                       use_reentrant=False)
 
 
@@ -369,31 +478,50 @@ def llama_hidden(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
     Under autograd with ``config.remat`` each block runs as
     ``config.remat_policy`` says (``_REMAT``): every policy gives the same
     values and gradients, and differs only in what the backward keeps and
-    what it runs again."""
-    if config.sp_ring:
-        raise NotImplementedError(
-            "ring attention is not ported yet; see ROADMAP.md, PyTorch/CUDA "
-            "port")
+    what it runs again.  With ``tokens`` a DTensor: this rank's rows of
+    the hidden states (module docstring)."""
     if config.remat_policy not in _REMAT:
         raise ValueError(f"remat_policy {config.remat_policy!r} is not one "
                          f"of {sorted(_REMAT)}")
     block = _block
     if config.remat and torch.is_grad_enabled():
         block = _REMAT[config.remat_policy]
-    x = params.embed[tokens].to(config.dtype)
+    spmd = Spmd.of(tokens)
+    x = _embed(config, params, tokens, spmd)
     cos, sin = rope_frequencies(config.head_dim, config.max_seq,
                                 config.rope_theta, device=x.device)
     for i, layer in enumerate(params.layers):
         ll = lora_params.layers[i] if lora_params is not None else None
-        x = block(config, x, layer, cos, sin, ll)
-    return rms_norm(x, params.final_norm, config.norm_eps)
+        x = block(config, x, layer, cos, sin, ll, spmd)
+    return rms_norm(x, _w(spmd, params.final_norm), config.norm_eps)
+
+
+def _embed(config: LlamaConfig, params: nn.Module, tokens: torch.Tensor,
+           spmd: Optional[Spmd]) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``config.dtype``.  Under
+    ``spmd`` this rank's tokens, with the vocabulary split over tp: each
+    rank fills the rows its slice holds and the tp sum completes them."""
+    if spmd is None:
+        return params.embed[tokens].to(config.dtype)
+    tokens = tokens.to_local()
+    table = spmd.weight(params.embed, tp=0)
+    if spmd.size(AXIS_TP) == 1:
+        return table[tokens].to(config.dtype)
+    n = table.shape[0]
+    lo = spmd.rank(AXIS_TP) * n
+    here = (tokens >= lo) & (tokens < lo + n)
+    rows = table[(tokens - lo).clamp(0, n - 1)] * here[..., None]
+    return _out_of_tp(spmd, rows.to(config.dtype))
 
 
 def llama_apply(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
                 lora_params: Optional["Lora"] = None) -> torch.Tensor:
-    """Returns fp32 logits [B, S, vocab] for int tokens [B, S]."""
+    """Returns fp32 logits [B, S, vocab] for int tokens [B, S] (with
+    ``tokens`` a DTensor: this rank's rows, its tp slice of the
+    vocabulary)."""
+    spmd = Spmd.of(tokens)
     x = llama_hidden(config, params, tokens, lora_params)
-    return (x @ params.lm_head).float()
+    return (_into_tp(spmd, x) @ _w(spmd, params.lm_head, tp=1)).float()
 
 
 def llama_loss(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
@@ -404,24 +532,45 @@ def llama_loss(config: LlamaConfig, params: Llama, tokens: torch.Tensor,
     vocab 128256, plus its gradient) never materialise.  Each
     ``config.loss_chunk`` slice of the sequence is checkpointed, so its
     logits are recomputed in the backward; when the chunk does not divide
-    S the loss takes one unchunked pass."""
+    S the loss takes one unchunked pass.  With ``tokens`` and ``targets``
+    DTensors each rank computes its rows' logits for its tp slice of the
+    vocabulary, and the sums are taken over the data axes: every rank
+    returns the global loss."""
+    spmd = Spmd.of(tokens)
     hidden = llama_hidden(config, params, tokens, lora_params)
-    S = hidden.shape[1]
-    w = params.lm_head
+    if spmd is None:
+        w, vocab = params.lm_head, {}
+    else:
+        hidden = _into_tp(spmd, hidden)
+        w = spmd.weight(params.lm_head, tp=1)
+        targets = targets.to_local()
+        vocab = {"vocab_axis": AXIS_TP, "mesh": spmd.mesh}
 
+    total, count = _chunked_nll(config, hidden, w, targets, ignore_index,
+                                **vocab)
+    if spmd is not None:
+        total, count = spmd.sum(total), spmd.sum(count)
+    return total / count.clamp_min(1)
+
+
+def _chunked_nll(config: LlamaConfig, hidden: torch.Tensor,
+                 w: torch.Tensor, targets: torch.Tensor, ignore_index: int,
+                 **vocab) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll sum, count) of ``hidden @ w`` against ``targets``, one
+    checkpointed ``config.loss_chunk`` slice of the sequence at a time (one
+    pass when the chunk does not divide S)."""
     def chunk_nll(h_c, tgt_c):
-        return masked_nll((h_c @ w).float(), tgt_c, ignore_index)
+        return masked_nll((h_c @ w).float(), tgt_c, ignore_index, **vocab)
 
-    chunk = config.loss_chunk
+    S, chunk = hidden.shape[1], config.loss_chunk
     if S % chunk:
-        total, count = chunk_nll(hidden, targets)
-        return total / count.clamp_min(1)
+        return chunk_nll(hidden, targets)
     total, count = 0.0, 0
     for c in range(0, S, chunk):
         nll, cnt = checkpoint(chunk_nll, hidden[:, c:c + chunk],
                               targets[:, c:c + chunk], use_reentrant=False)
         total, count = total + nll, count + cnt
-    return total / count.clamp_min(1)
+    return total, count
 
 
 # --------------------------------------------------------------------- LoRA
@@ -481,6 +630,10 @@ def lora_from_jax(config: LlamaConfig, np_tree: Mapping[str, Any],
     lora = Lora(config, rank, resolve_device(device))
     _load_tree(lora, np_tree)
     return lora.requires_grad_(True)
+
+
+def lora_sharding_rules() -> ShardingRules:
+    return ShardingRules([(r"lora", P())])
 
 
 @torch.no_grad()

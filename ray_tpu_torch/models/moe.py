@@ -23,8 +23,18 @@ K2/K3 for gradients on the card) and the norms through ``rms_norm`` (K4).
 Parameters keep the JAX tree's names (``layers.0.moe.w1`` is
 ``params["layers"][0]["moe"]["w1"]``); the router stays fp32 whatever the
 dtype.  ``n_experts=1, top_k=1`` with ample capacity is the dense SwiGLU.
-The expert-parallel sharding rules (``moe_sharding_rules``) wait for the
-sharded step (ROADMAP.md).
+
+Sharding: ``moe_sharding_rules`` puts the expert dim over ep and, within
+an expert, the FFN megatron-style over fsdp/tp.  With a DTensor batch
+(``make_train_step(mesh=, rules=)``) each rank routes every token of its
+rows (the router is replicated), runs its E/ep experts on its tp slice of
+d_ff, and the combined outputs are summed over tp and ep; attention, the
+norms, the embedding and the loss shard as Llama's do.  With the batch's
+rows or sequence split over data axes, capacity and claims stay the
+global batch's: each rank's claims are offset by the counts of the claims
+before them in the global order (one all-gather of per-row counts), the
+aux loss's statistics are summed over the data axes, and each rank runs
+the experts on its own kept claims only.
 """
 
 from __future__ import annotations
@@ -38,12 +48,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..collective import mesh_ops
 from ..device import DeviceLike, resolve_device
-from ..ops.losses import masked_cross_entropy
+from ..ops.losses import masked_cross_entropy, masked_nll
 from ..ops.norms import rms_norm
 from ..ops.rotary import rope_frequencies
-from .llama import (Attention, LlamaConfig, _attention, _generator,
-                    _load_tree, _normal_, _param)
+from ..parallel.mesh import AXIS_EP, AXIS_FSDP, AXIS_TP
+from ..parallel.sharding import P, ShardingRules, Spmd
+from .llama import (Attention, LlamaConfig, _attention, _embed, _generator,
+                    _into_tp, _load_tree, _normal_, _param, _w,
+                    llama_sharding_rules)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +207,19 @@ def moe_params_from_jax(config: MoEConfig, np_tree: Mapping[str, Any],
     return model.requires_grad_(trainable)
 
 
+def moe_sharding_rules() -> ShardingRules:
+    """Llama rules + expert weights sharded over (ep, fsdp, tp): each ep
+    shard owns E/ep experts; within an expert the FFN shards like megatron.
+    The router is tiny and replicated."""
+    base = llama_sharding_rules().rules
+    return ShardingRules([
+        (r"moe/router", P()),
+        (r"moe/(w1|w3)", P(AXIS_EP, AXIS_FSDP, AXIS_TP)),
+        (r"moe/w2", P(AXIS_EP, AXIS_TP, AXIS_FSDP)),
+        *[(pat.pattern, spec) for pat, spec in base],
+    ])
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """(values, indices) of the k largest probabilities of each row.  A
     stable descending sort puts the lower expert first among equal
@@ -201,13 +228,58 @@ def _top_k(probs: torch.Tensor, k: int):
     return top_p[:, :k], top_e[:, :k]
 
 
-def _route(config: MoEConfig, router: torch.Tensor, xf: torch.Tensor):
+def _split(spmd: Optional[Spmd]) -> int:
+    """How many ranks split the batch (1 when it is whole)."""
+    n = 1
+    for a in (spmd.data_axes if spmd is not None else ()):
+        n *= spmd.size(a)
+    return n
+
+
+def _exclusive(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim) - x
+
+
+def _claims_before(spmd: Spmd, onehot: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """What to add to this rank's claim indices [k * G, E] (its local
+    exclusive cumsum in claim order) to make them the global batch's.  The
+    global order is choice-major, then token order: batch row, then
+    sequence.  A rank holds ``rows`` rows of one sequence chunk (a
+    segment each); every rank's per-row claim counts are all-gathered."""
+    G, k, E = onehot.shape
+    per_row = onehot.view(rows, G // rows, k, E).sum(1)          # [R, k, E]
+    every = mesh_ops.allgather(per_row[None], spmd.data_axes,
+                               mesh=spmd.mesh)                 # [n, R, k, E]
+    n_seq = spmd.size(spmd.seq_axis) if spmd.seq_axis else 1
+    # Data ranks in mesh order: (dp, fsdp) batch blocks, then sp chunks.
+    segs = every.view(-1, n_seq, rows, k, E).transpose(1, 2)
+    segs = segs.reshape(-1, k, E)           # [(batch block, row, chunk)]
+    batch_block, chunk = divmod(
+        mesh_ops.axis_index(spmd.data_axes, mesh=spmd.mesh), n_seq)
+    mine = (batch_block * rows + torch.arange(rows, device=onehot.device)) \
+        * n_seq + chunk
+    total, local_total = segs.sum(0), per_row.sum(0)             # [k, E]
+    corr = (_exclusive(total - local_total, 0)[None]
+            + _exclusive(segs, 0)[mine] - _exclusive(per_row, 0))
+    # [R, k, E] -> the flat claim order [k, R, S, E].
+    return corr.transpose(0, 1)[:, :, None].expand(
+        k, rows, G // rows, E).reshape(k * G, E)
+
+
+def _route(config: MoEConfig, router: torch.Tensor, xf: torch.Tensor,
+           spmd: Optional[Spmd] = None, rows: int = 1):
     """Router and capacity assignment of tokens [G, d]: ``(probs [G, E],
     top_p [G, k], top_e [G, k], slot_oh [G, k, E, C])``; ``slot_oh`` is the
-    fp32 one-hot of each kept claim's slot, all zero for a dropped one."""
+    fp32 one-hot of each kept claim's slot, all zero for a dropped one.
+    With the batch split over ``spmd``'s data axes (``xf`` this rank's
+    ``rows`` rows), capacity and claims are the global batch's, and the
+    slots of this rank's kept claims are numbered in claim order, C their
+    largest count on any expert."""
     G = xf.shape[0]
     E, k = config.n_experts, config.top_k
-    C = config.capacity(G)
+    n = _split(spmd)
+    C = config.capacity(G * n)
     probs = torch.softmax(xf.float() @ router, dim=-1)          # [G, E]
     top_p, top_e = _top_k(probs, k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -217,7 +289,12 @@ def _route(config: MoEConfig, router: torch.Tensor, xf: torch.Tensor):
     onehot = F.one_hot(top_e, E).float()                        # [G, k, E]
     flat = onehot.transpose(0, 1).reshape(k * G, E)
     pos = torch.cumsum(flat, dim=0) - flat
+    if n > 1:
+        pos = pos + _claims_before(spmd, onehot, rows)
     keep = (pos < C) * flat
+    if n > 1:
+        pos = _exclusive(keep, 0)
+        C = max(int(keep.sum(0).max()), 1)
     slot = pos.reshape(k, G, E).transpose(0, 1)                 # [G, k, E]
     keep = keep.reshape(k, G, E).transpose(0, 1)
     # jax.nn.one_hot gives zeros at slot >= C, where F.one_hot raises: the
@@ -227,47 +304,79 @@ def _route(config: MoEConfig, router: torch.Tensor, xf: torch.Tensor):
     return probs, top_p, top_e, slot_oh
 
 
-def _experts(moe: Experts, expert_in: torch.Tensor) -> torch.Tensor:
-    """Batched SwiGLU over the expert dim: [E, C, d] -> [E, C, d]."""
-    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, moe.w1))
-    h = h * torch.einsum("ecd,edf->ecf", expert_in, moe.w3)
-    return torch.einsum("ecf,efd->ecd", h, moe.w2)
+def _experts(moe: Experts, expert_in: torch.Tensor,
+             spmd: Optional[Spmd] = None) -> torch.Tensor:
+    """Batched SwiGLU over the expert dim: [E, C, d] -> [E, C, d] (under
+    ``spmd``: this rank's experts, the tp partial sums of the output)."""
+    w1 = _w(spmd, moe.w1, ep=0, tp=2)
+    w3 = _w(spmd, moe.w3, ep=0, tp=2)
+    w2 = _w(spmd, moe.w2, ep=0, tp=1)
+    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, w1))
+    h = h * torch.einsum("ecd,edf->ecf", expert_in, w3)
+    return torch.einsum("ecf,efd->ecd", h, w2)
 
 
-def _moe_ffn(config: MoEConfig, moe: Experts, x: torch.Tensor
+def _expert_axes(spmd: Optional[Spmd], x: torch.Tensor,
+                 into: bool) -> torch.Tensor:
+    """Entering (``into``) the experts' region, where tp and ep ranks each
+    compute a share, the gradient of x sums their shares; leaving it, the
+    shares of the output are summed."""
+    if spmd is None:
+        return x
+    op = mesh_ops.pvary if into else mesh_ops.allreduce
+    return op(x, (AXIS_TP, AXIS_EP), mesh=spmd.mesh)
+
+
+def _moe_ffn(config: MoEConfig, moe: Experts, x: torch.Tensor,
+             spmd: Optional[Spmd] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k expert FFN over [B, S, d].  Returns (out, aux_loss)."""
     B, S, d = x.shape
     E = config.n_experts
     xf = x.reshape(B * S, d)
-    probs, top_p, top_e, slot_oh = _route(config, moe.router, xf)
+    probs, top_p, top_e, slot_oh = _route(config, _w(spmd, moe.router), xf,
+                                          spmd, B)
+    # The aux loss reads probs on every rank alike; the combine weights
+    # serve this rank's experts only.
+    top_p = _expert_axes(spmd, top_p, True)
     dispatch = slot_oh.sum(1)                                   # [G, E, C]
     combine = torch.einsum("gk,gkec->gec", top_p, slot_oh)
-    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(config.dtype), xf)
-    expert_out = _experts(moe, expert_in)
-    out = torch.einsum("gec,ecd->gd", combine.to(config.dtype), expert_out)
+    if spmd is not None:  # this rank's experts
+        n = E // spmd.size(AXIS_EP)
+        lo = spmd.rank(AXIS_EP) * n
+        dispatch, combine = dispatch[:, lo:lo + n], combine[:, lo:lo + n]
+    expert_in = torch.einsum("gec,gd->ecd", dispatch.to(config.dtype),
+                             _expert_axes(spmd, xf, True))
+    expert_out = _experts(moe, expert_in, spmd)
+    out = _expert_axes(spmd, torch.einsum(
+        "gec,ecd->gd", combine.to(config.dtype), expert_out), False)
 
-    frac_tokens = F.one_hot(top_e[:, 0], E).float().mean(0)
-    frac_prob = probs.mean(0)
+    first = F.one_hot(top_e[:, 0], E).float()
+    if _split(spmd) > 1:  # the global batch's shares
+        G = B * S * _split(spmd)
+        frac_tokens = spmd.sum(first.sum(0)) / G
+        frac_prob = spmd.sum(probs.sum(0)) / G
+    else:
+        frac_tokens = first.mean(0)
+        frac_prob = probs.mean(0)
     aux = E * torch.sum(frac_tokens * frac_prob)
     return out.reshape(B, S, d), aux
 
 
 def _moe_block(config: MoEConfig, x: torch.Tensor, layer: MoEBlock,
-               cos: torch.Tensor, sin: torch.Tensor):
-    h = rms_norm(x, layer.attn_norm, config.norm_eps)
-    x = x + _attention(config.as_llama(), h, layer, cos, sin)
-    h = rms_norm(x, layer.moe_norm, config.norm_eps)
-    ffn, aux = _moe_ffn(config, layer.moe, h)
+               cos: torch.Tensor, sin: torch.Tensor,
+               spmd: Optional[Spmd] = None):
+    h = rms_norm(x, _w(spmd, layer.attn_norm), config.norm_eps)
+    x = x + _attention(config.as_llama(), h, layer, cos, sin, None, spmd)
+    h = rms_norm(x, _w(spmd, layer.moe_norm), config.norm_eps)
+    ffn, aux = _moe_ffn(config, layer.moe, h, spmd)
     return x + ffn, aux
 
 
-def moe_apply(config: MoEConfig, params: MoE, tokens: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, S, vocab] fp32, aux_loss scalar).  Under
-    autograd with ``config.remat`` every block is checkpointed in full
-    (the JAX package's MoE has no other policy)."""
-    x = params.embed[tokens].to(config.dtype)
+def _moe_hidden(config: MoEConfig, params: MoE, tokens: torch.Tensor,
+                spmd: Optional[Spmd]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final-norm hidden states, mean aux loss over the layers)."""
+    x = _embed(config, params, tokens, spmd)
     cos, sin = rope_frequencies(config.head_dim, config.max_seq,
                                 config.rope_theta, device=x.device)
     remat = config.remat and torch.is_grad_enabled()
@@ -275,13 +384,25 @@ def moe_apply(config: MoEConfig, params: MoE, tokens: torch.Tensor
     for layer in params.layers:
         if remat:
             x, aux = checkpoint(_moe_block, config, x, layer, cos, sin,
-                                use_reentrant=False)
+                                spmd, use_reentrant=False)
         else:
-            x, aux = _moe_block(config, x, layer, cos, sin)
+            x, aux = _moe_block(config, x, layer, cos, sin, spmd)
         aux_total = aux_total + aux
-    x = rms_norm(x, params.final_norm, config.norm_eps)
-    logits = (x @ params.lm_head).float()
-    return logits, aux_total / max(config.n_layers, 1)
+    x = rms_norm(x, _w(spmd, params.final_norm), config.norm_eps)
+    return x, aux_total / max(config.n_layers, 1)
+
+
+def moe_apply(config: MoEConfig, params: MoE, tokens: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, S, vocab] fp32, aux_loss scalar).  Under
+    autograd with ``config.remat`` every block is checkpointed in full
+    (the JAX package's MoE has no other policy).  With ``tokens`` a
+    DTensor the logits are this rank's rows and tp slice of the
+    vocabulary."""
+    spmd = Spmd.of(tokens)
+    x, aux = _moe_hidden(config, params, tokens, spmd)
+    logits = (_into_tp(spmd, x) @ _w(spmd, params.lm_head, tp=1)).float()
+    return logits, aux
 
 
 def moe_loss(config: MoEConfig, params: MoE, tokens: torch.Tensor,
@@ -289,5 +410,11 @@ def moe_loss(config: MoEConfig, params: MoE, tokens: torch.Tensor,
              ) -> torch.Tensor:
     """LM cross entropy + weighted load-balancing aux loss."""
     logits, aux = moe_apply(config, params, tokens)
-    nll = masked_cross_entropy(logits, targets, ignore_index)
+    spmd = Spmd.of(tokens)
+    if spmd is None:
+        nll = masked_cross_entropy(logits, targets, ignore_index)
+    else:
+        total, count = masked_nll(logits, targets.to_local(), ignore_index,
+                                  vocab_axis=AXIS_TP, mesh=spmd.mesh)
+        nll = spmd.sum(total) / spmd.sum(count).clamp_min(1)
     return nll + config.aux_loss_coeff * aux

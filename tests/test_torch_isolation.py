@@ -52,7 +52,9 @@ def test_import_leaves_ray_tpu_unloaded():
             "ray_tpu_torch.util.tracing, ray_tpu_torch.util.steprec, "
             "ray_tpu_torch.util.devmem, ray_tpu_torch.util.profiling, "
             "ray_tpu_torch.util.trace_analysis, "
-            "ray_tpu_torch.devtools.jitguard; "
+            "ray_tpu_torch.devtools.jitguard, ray_tpu_torch.parallel, "
+            "ray_tpu_torch.collective.mesh_ops, "
+            "ray_tpu_torch.ops.ring_attention; "
             "print(sorted(m for m in sys.modules if m == 'ray_tpu' "
             "or m.startswith('ray_tpu.')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -139,18 +139,41 @@ def test_remat_gives_the_same_loss_and_grads():
 
 
 def test_unported_training_options_raise():
-    """Ring attention and sharded steps are not ported yet."""
+    """An unknown remat policy raises (ring attention and sharded steps,
+    once refused here, are ported: ``test_sp_ring_without_sp_axis_*``,
+    ``test_torch_ring.py``, ``test_torch_sharded.py``)."""
     _, _, tc, np_tree = _pair("tiny")
     tp = params_from_jax(tc, np_tree, device="cpu", trainable=True)
     toks = torch.zeros((1, 8), dtype=torch.long)
-    cfg = dataclasses.replace(tc, sp_ring=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama_loss(cfg, tp, toks, toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(lambda p, b: p, default_optimizer(), mesh=object())
     with pytest.raises(ValueError, match="remat_policy"):
         llama_loss(dataclasses.replace(tc, remat_policy="dots"), tp, toks,
                    toks)
+
+
+def test_sp_ring_without_sp_axis_matches_plain_and_jax():
+    """``sp_ring=True`` with no sp axis bound is plain flash attention (K1
+    on the card), as in JAX outside ``shard_map``: the loss and every
+    gradient equal ``sp_ring=False``'s exactly, and the JAX package's
+    ``sp_ring=True`` loss and gradients to fp32 noise."""
+    jc, jp, tc, np_tree = _pair("tiny", loss_chunk=8)
+    toks, tgt = _batch()
+    want, jgrads = jax.value_and_grad(
+        lambda p: jax_llama_loss(dataclasses.replace(jc, sp_ring=True), p,
+                                 jnp.asarray(toks), jnp.asarray(tgt)))(jp)
+    out = []
+    for ring in (False, True):
+        cfg = dataclasses.replace(tc, sp_ring=ring)
+        tp = params_from_jax(cfg, np_tree, device="cpu", trainable=True)
+        loss = llama_loss(cfg, tp, torch.from_numpy(toks).long(),
+                          torch.from_numpy(tgt).long())
+        loss.backward()
+        out.append((loss.detach(), tp))
+    (l0, plain), (l1, ring) = out
+    assert torch.equal(l0, l1)
+    for (name, p0), p1 in zip(plain.named_parameters(), ring.parameters()):
+        assert torch.equal(p0.grad, p1.grad), name
+    np.testing.assert_allclose(float(l1), float(want), rtol=1e-5)
+    _assert_tree(ring, jgrads, "grad", atol=2e-6, rtol=1e-4)
 
 
 _POLICIES = ("full", "save_attn", "cse_save_attn", "save_dots",
