@@ -105,7 +105,28 @@ no result line):
    margins of tokens whose choice differs.
 15. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
-16. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+16. rllib: the learners, models and in-process env runners of
+   ``ray_tpu_torch.rllib`` on the card in fp32, none given a device.  (a)
+   The main path: PPO on CartPole at ``PPOConfig``'s defaults (two
+   ``EnvRunner``s of 8 envs x 64 steps, GAE, ``update_from_batch`` of 10
+   epochs x minibatch 256, weights synced back), 5 iterations and one
+   more under the profiler: env steps/s, learn time an iteration, idle
+   share.  (b) ``PPOLearner`` on ``CNNModel`` at the Nature-DQN widths
+   (84 x 84 x 4 frames, convs 32/64/64 of 8/4/3 by strides 4/2/1, dense
+   512) with the PPO paper's Atari settings: one ``update_from_batch`` of
+   1,024 seeded synthetic frames (3 epochs x minibatch 256), wall and
+   device time, frames/s, one minibatch step, the host-to-device copy,
+   peak memory, idle share.  (c) DQN (a replay buffer filled by
+   ``sample_transitions``, 64 updates of 64, ``sync_target``), IMPALA (two
+   ``ImpalaEnvRunner`` fragments of 64 x 8 an update), SAC on Pendulum
+   (hidden 256, batch 256) and BC (on a dataset ``collect_offline_dataset``
+   writes): the time of an update.  Each learner's update is held to the
+   same update on the CPU from the same weights (SAC with the same
+   noise): losses within 1e-4 relative (+1e-6), the gradients within 1e-4
+   relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
+   Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
+   ``mesh=`` dp 2 against the one-process update.
+17. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -131,7 +152,8 @@ no result line):
 
 Kernel launch counters are zeroed just before the tiny serve, the
 forward, the serve, the observe mix, the multitenant, the train, each
-remat policy's and the moe paths run and read just after: K1 and K4's
+remat policy's, the moe and the rllib paths run and read just after (the
+rllib path launches none of the csrc kernels): K1 and K4's
 forward must have launched on the tiny serve, forward, serve and observe
 paths (K4's backward never), on the multitenant path K1 once a layer per
 prefill and K4's forward once a norm per program call.  Per layer and step a train step
@@ -2660,6 +2682,566 @@ def phase_mlp(torch, report, seed: int, steps: int = 20):
     report["mlp"] = {"steps": steps, "wall_s": wall_s, "losses": losses}
 
 
+# ------------------------------------------------------------------- rllib
+#
+# rllib's learners, models and in-process env runners on the card, fp32
+# (TF32 off).  No kernel of csrc/ lies on this path: the convolutions and
+# products are cuDNN's and cuBLAS's, as XLA's are in the JAX package.  Each
+# learner's update is held to the same update on the CPU from the same
+# weights and inputs (``_rl_gate``).
+
+#: PPOConfig's defaults (ray_tpu/rllib/ppo.py): 2 runners x 8 envs x 64
+#: steps, GAE(0.99, 0.95), 10 epochs of minibatch 256.
+RL_PPO = dict(runners=2, envs=8, steps=64, gamma=0.99, lam=0.95,
+              epochs=10, minibatch=256, lr=3e-4)
+RL_ITERS = 5
+#: The Nature-DQN torso on 84 x 84 x 4 frames (Mnih et al. 2015) under the
+#: PPO paper's Atari settings (Schulman et al. 2017, Table 5): 8 actors x
+#: 128 steps, minibatch 256, 3 epochs, lr 2.5e-4, clip 0.1, vf 1, ent 0.01.
+RL_ATARI = dict(obs=(84, 84, 4), actions=6, channels=(32, 64, 64),
+                kernels=(8, 4, 3), strides=(4, 2, 1), dense=512,
+                batch=1024, minibatch=256, epochs=3, lr=2.5e-4)
+#: Card against CPU: each loss within RL_LOSS_REL of the CPU's (plus
+#: RL_LOSS_FLOOR for a metric near zero); the last step's gradients within
+#: RL_GRAD_REL relative global norm; every parameter within
+#: 2 steps lr (1.01) + 1e-4 |p|: Adam's step is at most ~lr an element
+#: whatever the gradient, so two runs whose near-zero gradient elements
+#: differ by rounding can move such an element by lr the other way.
+RL_LOSS_REL, RL_LOSS_FLOOR, RL_GRAD_REL = 1e-4, 1e-6, 1e-4
+
+
+def _rl_gate(torch, name: str, card, cpu, aux_card, aux_cpu, lr: float,
+             steps: int):
+    """Hold ``card`` (an ``nn.Module`` on the card after ``steps`` updates)
+    and its metrics to ``cpu`` after the same updates on the CPU."""
+    loss = {k: abs(aux_card[k] - aux_cpu[k])
+            / (RL_LOSS_REL * abs(aux_cpu[k]) + RL_LOSS_FLOOR)
+            for k in aux_cpu}
+    g_err = g_ref = 0.0
+    worst_p, worst_abs, tight = 0.0, 0.0, 0
+    with torch.no_grad():
+        for (n, pc), (_, pg) in zip(cpu.named_parameters(),
+                                    card.named_parameters()):
+            if pc.grad is not None:
+                check(pg.grad is not None, f"{name}: {n} has no gradient")
+                g_err += float(((pg.grad.cpu() - pc.grad) ** 2).sum())
+                g_ref += float((pc.grad ** 2).sum())
+            d = (pg.detach().cpu() - pc.detach()).abs()
+            bound = 2 * steps * lr * 1.01 + 1e-4 * pc.detach().abs()
+            worst_p = max(worst_p, float((d / bound).max()))
+            worst_abs = max(worst_abs, float(d.max()))
+            tight += int((d > 2e-5 + 1e-4 * pc.detach().abs()).sum())
+    grad_rel = (g_err / max(g_ref, 1e-30)) ** 0.5
+    rec = {"loss_ratio": max(loss.values()), "grad_rel": grad_rel,
+           "param_ratio": worst_p, "param_max_abs_err": worst_abs,
+           "params_past_2e-5": tight, "steps": steps,
+           "card": aux_card, "cpu": aux_cpu}
+    print(f"[rllib] gate {name}: losses card/CPU "
+          + ", ".join(f"{k} {aux_card[k]:.6g}/{aux_cpu[k]:.6g}"
+                      for k in aux_cpu)
+          + f" (worst error / (1e-4 rel + 1e-6) {rec['loss_ratio']:.3g}); "
+          f"gradient rel norm err {grad_rel:.3g} (tol {RL_GRAD_REL}); "
+          f"parameters worst error / Adam bound {worst_p:.3g} (max abs "
+          f"{worst_abs:.3g}, {tight} elements past 2e-5 + 1e-4 |p|) after "
+          f"{steps} step(s)", flush=True)
+    check(rec["loss_ratio"] <= 1.0 and grad_rel <= RL_GRAD_REL
+          and worst_p <= 1.0,
+          f"rllib {name}: the card's update disagrees with the CPU's: "
+          f"{ {k: v for k, v in rec.items() if k not in ('card', 'cpu')} }")
+    return rec
+
+
+def _rl_stitch(samples, gamma: float, lam: float):
+    """The PPO algorithm's batch: GAE per runner fragment, then [T, N] rows
+    flattened and concatenated (ray_tpu/rllib/ppo.py ``train``)."""
+    from ray_tpu_torch.rllib import compute_gae
+
+    flat = {"obs": [], "actions": [], "logp_old": [], "advantages": [],
+            "returns": []}
+    for s in samples:
+        adv, ret = compute_gae(s["rewards"], s["values"],
+                               s["bootstrap_values"], s["dones"], gamma, lam)
+        T, N = s["rewards"].shape
+        flat["obs"].append(s["obs"].reshape(T * N, *s["obs"].shape[2:]))
+        flat["actions"].append(s["actions"].reshape(-1))
+        flat["logp_old"].append(s["logp_old"].reshape(-1))
+        flat["advantages"].append(adv.reshape(-1))
+        flat["returns"].append(ret.reshape(-1))
+    return {k: np.concatenate(v) for k, v in flat.items()}
+
+
+def _rl_busy(torch, fn):
+    """(device ms, wall ms, idle share, {kernel: ms}) of one call of
+    ``fn`` under the profiler."""
+    by_name, wall = profile_window(torch, fn, iters=1)
+    busy = sum(by_name.values())
+    return busy, wall, 1.0 - busy / wall, by_name
+
+
+def _rl_update_times(torch, fn, n: int):
+    """Wall ms per call over ``n`` calls of ``fn`` (which ends in a host
+    read, so each call is complete), then one profiled call's device ms and
+    idle share."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    busy, pwall, idle, _ = _rl_busy(torch, fn)
+    return {"wall_ms": wall, "device_ms": busy, "profiled_wall_ms": pwall,
+            "idle_share": idle}
+
+
+def _rl_ppo_cartpole(torch, seed: int, dev=None):
+    """(a) The main path: PPOConfig's defaults on CartPole, two in-process
+    ``EnvRunner``s and a ``PPOLearner`` on the card, ``RL_ITERS``
+    iterations of sample -> GAE -> ``update_from_batch`` -> weight sync,
+    then one more under the profiler."""
+    from ray_tpu_torch.rllib import EnvRunner, MLPModel, PPOLearner
+
+    c = RL_PPO
+    model = MLPModel((4,), 2, 64)
+    runners = [EnvRunner("CartPole-v1", c["envs"], seed=seed + i,
+                         model=model, device=dev) for i in range(c["runners"])]
+    learner = PPOLearner(4, 2, lr=c["lr"], seed=seed, model=model,
+                         device=dev)
+    want = dev or "cuda"
+    check(all(p.device.type == want for p in learner.params.parameters())
+          and runners[0].device.type == want,
+          "the learner or the runners were not built on the card")
+    weights = learner.get_weights()
+    for r in runners:
+        r.set_weights(weights)
+    its, returns = [], []
+
+    def iteration(i):
+        t0 = time.perf_counter()
+        samples = [r.sample(c["steps"]) for r in runners]
+        t1 = time.perf_counter()
+        batch = _rl_stitch(samples, c["gamma"], c["lam"])
+        m = learner.update_from_batch(
+            batch, num_epochs=c["epochs"],
+            minibatch_size=min(c["minibatch"], len(batch["obs"])),
+            seed=seed + i)
+        t2 = time.perf_counter()
+        w = learner.get_weights()
+        for r in runners:
+            r.set_weights(w)
+        t3 = time.perf_counter()
+        for s in samples:
+            returns.extend(s["episode_returns"].tolist())
+        its.append({"steps": len(batch["obs"]), "sample_s": t1 - t0,
+                    "learn_s": t2 - t1, "sync_s": t3 - t2,
+                    "wall_s": t3 - t0, "copy": dict(learner.last_copy),
+                    **m})
+        return batch
+
+    for i in range(RL_ITERS):
+        batch = iteration(i)
+    busy, wall, idle, _ = _rl_busy(torch, lambda: iteration(RL_ITERS))
+    check(all(np.isfinite(it["total_loss"]) for it in its),
+          f"PPO losses not finite: {[it['total_loss'] for it in its]}")
+    timed = its[1:RL_ITERS]  # the first iteration builds and warms
+    steps = sum(it["steps"] for it in timed)
+    rec = {
+        "iterations": its, "episode_returns": returns,
+        "env_steps_per_s": steps / sum(it["wall_s"] for it in timed),
+        "sample_steps_per_s": steps / sum(it["sample_s"] for it in timed),
+        "learn_ms": 1e3 * sum(it["learn_s"] for it in timed) / len(timed),
+        "traced_iteration": {"device_ms": busy, "wall_ms": wall,
+                             "idle_share": idle}}
+    print(f"[rllib] ppo cartpole: {RL_ITERS} iterations of "
+          f"{its[0]['steps']} env steps (2 runners x 8 envs x 64) + 10 "
+          f"epochs x 4 minibatches; env steps/s {rec['env_steps_per_s']:.0f}"
+          f" (sampling alone {rec['sample_steps_per_s']:.0f}); learn "
+          f"{rec['learn_ms']:.1f} ms an iteration; losses "
+          f"{[round(it['total_loss'], 4) for it in its]}; mean return "
+          f"{np.mean(returns) if returns else float('nan'):.1f} over "
+          f"{len(returns)} episodes; a traced iteration: device "
+          f"{busy:.2f} of {wall:.1f} ms, idle share {idle:.4f}", flush=True)
+    return rec, batch
+
+
+def _rl_gate_ppo(torch, seed: int, model, batch, lr: float, kw, name: str,
+                 dev=None, **learner_kw):
+    """One ``update_from_batch`` of one minibatch step on the card and on
+    the CPU, from the same initial weights."""
+    from ray_tpu_torch.rllib import PPOLearner
+
+    size = int(np.prod(model.obs_shape))
+    card = PPOLearner(size, model.num_actions, lr=lr, seed=seed,
+                      model=model, device=dev, **learner_kw)
+    cpu = PPOLearner(size, model.num_actions, lr=lr, seed=seed,
+                     model=model, device="cpu", **learner_kw)
+    check(all(torch.equal(a.cpu(), b) for a, b in
+              zip(card.params.parameters(), cpu.params.parameters())),
+          f"{name}: the same seed gave other weights on the card")
+    mb = {k: v[:kw["minibatch_size"]] for k, v in batch.items()}
+    return _rl_gate(torch, name, card.params, cpu.params,
+                    card.update_from_batch(mb, **kw),
+                    cpu.update_from_batch(mb, **kw), lr, 1)
+
+
+def _rl_atari(torch, seed: int, dev=None):
+    """(b) PPO at the Nature-CNN Atari widths: one ``update_from_batch``
+    of a 1,024-frame batch (3 epochs x 4 minibatches of 256), timed
+    wall and device, one minibatch step alone, the host-to-device copy,
+    peak memory and idle share; then one minibatch step against the CPU."""
+    from ray_tpu_torch.rllib import CNNModel, PPOLearner
+    from ray_tpu_torch.rllib.learner import to_device
+
+    c = RL_ATARI
+    model = CNNModel(c["obs"], c["actions"], channels=c["channels"],
+                     kernels=c["kernels"], strides=c["strides"],
+                     dense=c["dense"])
+    kw = dict(lr=c["lr"], clip_param=0.1, vf_coeff=1.0,
+              entropy_coeff=0.01)
+    learner = PPOLearner(int(np.prod(c["obs"])), c["actions"], seed=seed,
+                         model=model, device=dev, **kw)
+    n_params = sum(p.numel() for p in learner.params.parameters())
+    rng = np.random.default_rng(seed + 11)
+    n = c["batch"]
+    frames = rng.integers(0, 256, (n, *c["obs"]), dtype=np.uint8)
+    batch = {"obs": frames.astype(np.float32) / 255.0,
+             "actions": rng.integers(0, c["actions"], n).astype(np.int32),
+             "logp_old": (np.log(1.0 / c["actions"])
+                          + rng.normal(0, 0.05, n)).astype(np.float32),
+             "advantages": rng.normal(size=n).astype(np.float32),
+             "returns": rng.normal(size=n).astype(np.float32)}
+    upd = dict(num_epochs=c["epochs"], minibatch_size=c["minibatch"],
+               seed=seed)
+    learner.update_from_batch(batch, **upd)  # warm (cuDNN, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = learner.update_from_batch(batch, **upd)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    copy = dict(learner.last_copy)
+    busy, pwall, idle, by_name = _rl_busy(
+        torch, lambda: learner.update_from_batch(batch, **upd))
+    # The copy as the profiled window saw it (CUPTI has dropped a window's
+    # copies on the H100 machine) and by CUDA events around the copy alone.
+    h2d_traced_ms = sum(v for k, v in by_name.items() if "HtoD" in k)
+    h2d_ms = time_ms(torch, lambda: to_device(batch, learner.device),
+                     iters=3, warmup=1)
+    mb = {k: torch.from_numpy(v[:c["minibatch"]]).to(learner.device)
+          for k, v in batch.items()}
+    step_call_ms = time_ms(torch, lambda: learner._update(mb), iters=10)
+    step_dev_ms = device_ms(torch, lambda: learner._update(mb), iters=5)
+    steps = c["epochs"] * (n // c["minibatch"])
+    rec = {"params": n_params, "update_wall_ms": wall_s * 1e3,
+           "update_device_ms": busy, "update_profiled_wall_ms": pwall,
+           "idle_share": idle, "frames_per_s": steps * c["minibatch"]
+           / wall_s, "minibatch_steps": steps,
+           "step_call_ms": step_call_ms, "step_device_ms": step_dev_ms,
+           "h2d_bytes": copy["bytes"], "h2d_host_ms": copy["seconds"] * 1e3,
+           "h2d_ms": h2d_ms, "h2d_traced_ms": h2d_traced_ms,
+           "peak_gb": peak_gb, **m}
+    print(f"[rllib] ppo nature-cnn (84x84x4, 32/64/64 convs, dense 512, "
+          f"{n_params:,} parameters): update_from_batch of {n} frames "
+          f"({steps} minibatch steps) wall {rec['update_wall_ms']:.1f} ms, "
+          f"device {busy:.1f} ms (idle share {idle:.4f}); "
+          f"{rec['frames_per_s']:.0f} frames/s; one minibatch step "
+          f"{step_call_ms:.2f} ms (device {step_dev_ms:.2f}); host-to-device "
+          f"copy of {copy['bytes'] / 1e6:.1f} MB: {h2d_ms:.2f} ms by CUDA "
+          f"events ({copy['bytes'] / h2d_ms / 1e6:.2f} GB/s), host "
+          f"{rec['h2d_host_ms']:.1f} ms in the timed update, "
+          f"{h2d_traced_ms:.2f} ms in the traced one; peak "
+          f"{peak_gb:.3f} GB; loss "
+          f"{m['total_loss']:.5f}", flush=True)
+    del learner, mb
+    rec["gate"] = _rl_gate_ppo(
+        torch, seed, model, batch, c["lr"],
+        dict(num_epochs=1, minibatch_size=c["minibatch"], seed=0),
+        "ppo nature-cnn", dev, clip_param=0.1, vf_coeff=1.0,
+        entropy_coeff=0.01)
+    return rec
+
+
+def _rl_dqn(torch, seed: int, dev=None):
+    """(c) DQN at DQNConfig's defaults: a ``ReplayBuffer`` filled by an
+    ``EnvRunner``'s ``sample_transitions`` on the card, 64 updates of
+    batch 64 and one ``sync_target``."""
+    from ray_tpu_torch.rllib import DQNLearner, EnvRunner, ReplayBuffer
+    from ray_tpu_torch.rllib.learner import host_floats
+
+    kw = dict(lr=5e-4, gamma=0.99, grad_clip=10.0, hidden=64)
+    runner = EnvRunner("CartPole-v1", 8, seed=seed, device=dev)
+    learner = DQNLearner(4, 2, seed=seed, device=dev, **kw)
+    runner.set_q_weights(learner.get_weights())
+    buf = ReplayBuffer(50_000, 4, seed=seed)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        buf.add_batch(runner.sample_transitions(32, 1.0))
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aux = None
+    for _ in range(64):
+        aux = learner.update_raw(buf.sample(64))
+    m = host_floats(aux)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    learner.sync_target()
+    times = _rl_update_times(
+        torch, lambda: learner.update_from_batch(buf.sample(64)), 32)
+    runner.set_q_weights(learner.get_weights())
+    runner.sample_transitions(8, 0.05)
+    batch = buf.sample(64)
+    card = DQNLearner(4, 2, seed=seed, device=dev, **kw)
+    cpu = DQNLearner(4, 2, seed=seed, device="cpu", **kw)
+    gate = _rl_gate(torch, "dqn", card.params, cpu.params,
+                    card.update_from_batch(batch),
+                    cpu.update_from_batch(batch), kw["lr"], 1)
+    rec = {"transitions": len(buf), "sample_s": sample_s,
+           "burst_ms_per_update": burst_ms / 64, **times, **m,
+           "gate": gate}
+    print(f"[rllib] dqn: {len(buf)} transitions in {sample_s:.2f} s; 64 "
+          f"updates of 64 at {rec['burst_ms_per_update']:.3f} ms each (one "
+          f"read at the end); one update with its read {times['wall_ms']:.3f}"
+          f" ms (device {times['device_ms']:.3f} ms, idle share "
+          f"{times['idle_share']:.4f}); loss {m['loss']:.5f}", flush=True)
+    return rec
+
+
+def _rl_impala(torch, seed: int, dev=None):
+    """(c) IMPALA at ImpalaConfig's defaults: two ``ImpalaEnvRunner``
+    fragments of 64 steps x 8 envs per update, lr 7e-4, grad clip 40."""
+    from ray_tpu_torch.rllib import ImpalaEnvRunner, ImpalaLearner
+
+    runners = [ImpalaEnvRunner("CartPole-v1", 8, seed=seed + i, device=dev)
+               for i in range(2)]
+    learner = ImpalaLearner(4, 2, lr=7e-4, grad_clip=40.0, seed=seed,
+                            device=dev)
+    for r in runners:
+        r.set_weights(learner.get_weights(), 0)
+    t0 = time.perf_counter()
+    frags = [r.sample(64) for r in runners]
+    sample_s = time.perf_counter() - t0
+    for v in range(8):
+        m = learner.update_from_fragments(frags)
+        for r in runners:
+            r.set_weights(learner.get_weights(), v + 1)
+        frags = [r.sample(64) for r in runners]
+    times = _rl_update_times(
+        torch, lambda: learner.update_from_fragments(frags), 16)
+    card = ImpalaLearner(4, 2, lr=7e-4, grad_clip=40.0, seed=seed,
+                         device=dev)
+    cpu = ImpalaLearner(4, 2, lr=7e-4, grad_clip=40.0, seed=seed,
+                        device="cpu")
+    gate = _rl_gate(torch, "impala", card.params, cpu.params,
+                    card.update_from_fragments(frags),
+                    cpu.update_from_fragments(frags), 7e-4, 1)
+    rec = {"fragment_sample_s": sample_s, **times, **m, "gate": gate}
+    print(f"[rllib] impala: 2 fragments of 64 x 8 sampled in "
+          f"{sample_s:.2f} s; one V-trace update {times['wall_ms']:.3f} ms "
+          f"(device {times['device_ms']:.3f} ms, idle share "
+          f"{times['idle_share']:.4f}); loss {m['total_loss']:.5f}, mean "
+          f"rho {m['mean_rho']:.4f}", flush=True)
+    return rec
+
+
+def _rl_sac(torch, seed: int, dev=None):
+    """(c) SAC at SACConfig's defaults on Pendulum: hidden 256, batch 256,
+    16 updates from a buffer filled by a ``ContinuousEnvRunner`` on the
+    card; the gate hands the card and the CPU the same noise."""
+    from ray_tpu_torch.rllib import (ContinuousEnvRunner, PendulumEnv,
+                                     SACLearner)
+    from ray_tpu_torch.rllib.learner import host_floats, to_device
+
+    kw = dict(action_low=-2.0, action_high=2.0, hidden=256)
+    runner = ContinuousEnvRunner(PendulumEnv, 8, action_size=1, scale=2.0,
+                                 bias=0.0, seed=seed, device=dev)
+    parts = [runner.sample_transitions(32, random_actions=True)
+             for _ in range(4)]
+    data = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]
+            if k != "episode_returns"}
+    rng = np.random.default_rng(seed + 3)
+    learner = SACLearner(3, 1, seed=seed, device=dev, **kw)
+
+    def update():
+        idx = rng.integers(0, len(data["rewards"]), 256)
+        return learner.update_from_batch({k: v[idx] for k, v in
+                                          data.items()})
+
+    for _ in range(16):
+        m = update()
+    runner.set_actor_weights(learner.get_actor_weights())
+    runner.sample_transitions(8)
+    times = _rl_update_times(torch, update, 16)
+    idx = rng.integers(0, len(data["rewards"]), 256)
+    batch = {k: v[idx] for k, v in data.items()}
+    gen = torch.Generator().manual_seed(seed)
+    eps = [torch.randn(256, 1, generator=gen) for _ in range(2)]
+    card = SACLearner(3, 1, seed=seed, device=dev, **kw)
+    cpu = SACLearner(3, 1, seed=seed, device="cpu", **kw)
+    a_card = host_floats(card._update(to_device(batch, card.device),
+                                      *[e.to(card.device) for e in eps]))
+    a_cpu = host_floats(cpu._update(to_device(batch, cpu.device), *eps))
+    gate = _rl_gate(torch, "sac", card.params, cpu.params, a_card, a_cpu,
+                    3e-4, 1)
+    rec = {**times, **m, "gate": gate}
+    print(f"[rllib] sac: one update of 256 (twin critics, actor, alpha, "
+          f"Polyak) {times['wall_ms']:.3f} ms (device "
+          f"{times['device_ms']:.3f} ms, idle share "
+          f"{times['idle_share']:.4f}); critic loss {m['critic_loss']:.4f}",
+          flush=True)
+    return rec
+
+
+def _rl_bc(torch, seed: int, dev=None):
+    """(c) BC on a dataset ``collect_offline_dataset`` writes to a temp
+    dir (50 CartPole episodes of an epsilon-soft reactive policy), 200
+    steps of batch 256."""
+    from ray_tpu_torch.rllib import BC, JsonReader, collect_offline_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    try:
+        path = os.path.join(tmp, "cartpole.jsonl")
+        rows = collect_offline_dataset(
+            "CartPole-v1", path, num_episodes=50, seed=seed, epsilon=0.3,
+            policy=lambda obs: ((1 if obs[2] > 0 else 0), 1.0))
+        reader = JsonReader(path)
+        bc = BC((4,), 2, lr=1e-3, seed=seed, device=dev)
+        bc.train_on(reader, num_steps=10, batch_size=256)
+        t0 = time.perf_counter()
+        loss = bc.train_on(reader, num_steps=200, batch_size=256, seed=1)
+        step_ms = (time.perf_counter() - t0) * 1e3 / 200
+        table = reader.read_all()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    idx = np.random.default_rng(seed).integers(0, rows, 256)
+    obs = torch.from_numpy(np.asarray(table["obs"], np.float32)[idx])
+    acts = torch.from_numpy(np.asarray(table["actions"], np.int32)[idx])
+    times = _rl_update_times(
+        torch, lambda: float(bc._update(obs.to(bc.device),
+                                        acts.to(bc.device))), 32)
+    card = BC((4,), 2, lr=1e-3, seed=seed, device=dev)
+    cpu = BC((4,), 2, lr=1e-3, seed=seed, device="cpu")
+    gate = _rl_gate(torch, "bc", card.params, cpu.params,
+                    {"loss": float(card._update(obs.to(card.device),
+                                                acts.to(card.device)))},
+                    {"loss": float(cpu._update(obs, acts))}, 1e-3, 1)
+    rec = {"rows": rows, "train_on_ms_per_step": step_ms, "loss": loss,
+           **times, "gate": gate}
+    print(f"[rllib] bc: {rows} rows; train_on {step_ms:.3f} ms a step of "
+          f"256 (its loop reads once); one step with its read "
+          f"{times['wall_ms']:.3f} ms (device {times['device_ms']:.3f} ms); "
+          f"loss {loss:.4f}", flush=True)
+    return rec
+
+
+def _rl_rank(rank: int, seed: int, tmp: str):
+    """One rank of the rllib mesh check: the PPO ``update_from_batch`` at
+    dp 2 on the card, on the batch the parent saved."""
+    import torch
+
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.rllib import PPOLearner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with np.load(os.path.join(tmp, "batch.npz")) as f:
+        batch = {k: f[k] for k in f.files}
+    mesh = make_mesh(MeshConfig(dp=2, fsdp=1))
+    learner = PPOLearner(4, 2, lr=RL_PPO["lr"], seed=seed, mesh=mesh)
+    t0 = time.perf_counter()
+    m = learner.update_from_batch(batch, num_epochs=RL_PPO["epochs"],
+                                  minibatch_size=RL_PPO["minibatch"])
+    return {"metrics": m, "s": time.perf_counter() - t0,
+            "params": {k: v.cpu().numpy() for k, v in
+                       learner.params.state_dict().items()},
+            "imports": sorted(mod for mod in sys.modules
+                              if mod.split(".")[0] in ("jax", "jaxlib",
+                                                       "ray_tpu"))}
+
+
+def _rl_mesh(torch, seed: int, batch):
+    """(d) The learners' ``mesh=`` path: two ranks on the one card over
+    gloo, one PPO ``update_from_batch`` at dp 2 (PPOConfig's 10 epochs of
+    minibatch 256), held against the same update in one process."""
+    from ray_tpu_torch.parallel import spawn_ranks
+    from ray_tpu_torch.rllib import PPOLearner
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_mesh_")
+    try:
+        np.savez(os.path.join(tmp, "batch.npz"), **batch)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_rl_rank, 2, seed, tmp,
+                            store=os.path.join(tmp, "store"),
+                            backend="gloo", cuda_device=0, timeout_s=300)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(not r["imports"] for r in ranks),
+          f"a rank imported JAX or the JAX package: "
+          f"{[r['imports'] for r in ranks]}")
+    one = PPOLearner(4, 2, lr=RL_PPO["lr"], seed=seed)
+    t0 = time.perf_counter()
+    m = one.update_from_batch(batch, num_epochs=RL_PPO["epochs"],
+                              minibatch_size=RL_PPO["minibatch"])
+    one_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    check(r0["metrics"] == r1["metrics"]
+          and all(np.array_equal(r0["params"][k], r1["params"][k])
+                  for k in r0["params"]),
+          "the two ranks' parameters or metrics differ")
+    loss = max(abs(r0["metrics"][k] - m[k])
+               / (RL_LOSS_REL * abs(m[k]) + RL_LOSS_FLOOR) for k in m)
+    steps = RL_PPO["epochs"] * (len(batch["obs"]) // RL_PPO["minibatch"])
+    worst, worst_abs = 0.0, 0.0
+    for k, v in one.params.state_dict().items():
+        ref = v.cpu().numpy()
+        d = np.abs(r0["params"][k] - ref)
+        worst = max(worst, float((d / (2 * steps * RL_PPO["lr"] * 1.01
+                                       + 1e-4 * np.abs(ref))).max()))
+        worst_abs = max(worst_abs, float(d.max()))
+    rec = {"ranks_s": ranks_s, "rank_update_s": [r["s"] for r in ranks],
+           "one_process_s": one_s, "loss_ratio": loss,
+           "param_ratio": worst, "param_max_abs_err": worst_abs,
+           "steps": steps, "metrics": r0["metrics"], "one_process": m}
+    print(f"[rllib] mesh dp 2 (two ranks on the one card, gloo): PPO "
+          f"update_from_batch of {len(batch['obs'])} rows ({steps} steps) "
+          f"total loss {r0['metrics']['total_loss']:.6f} vs one process "
+          f"{m['total_loss']:.6f} (worst metric error / (1e-4 rel + 1e-6) "
+          f"{loss:.3g}); parameters worst error / Adam bound {worst:.3g} "
+          f"(max abs {worst_abs:.3g}); rank update "
+          f"{[round(r['s'], 3) for r in ranks]} s, one process {one_s:.3f} "
+          f"s; spawn and all {ranks_s:.1f} s", flush=True)
+    check(loss <= 1.0 and worst <= 1.0,
+          f"the dp 2 update disagrees with the one-process update: {rec}")
+    return rec
+
+
+def phase_rllib(torch, report, seed: int, dev=None):
+    """rllib on the card, fp32 (see the section's comment): (a) the main
+    path, PPO on CartPole with its launch counts, (b) PPO at the Nature-CNN
+    Atari widths, (c) DQN, IMPALA, SAC and BC, (d) the ``mesh=`` path.
+    ``dev="cpu"`` (a rehearsal off the card, the profiler and the card's
+    clocks stubbed) drives every piece but (d) on the CPU."""
+    _reset_counts()
+    ppo, batch = _rl_ppo_cartpole(torch, seed, dev)
+    counts = _read_counts()
+    check(not any(counts.values()),
+          f"a csrc kernel launched on the rllib path: {counts}")
+    from ray_tpu_torch.rllib import MLPModel
+
+    ppo["gate"] = _rl_gate_ppo(
+        torch, seed, MLPModel((4,), 2, 64), batch, RL_PPO["lr"],
+        dict(num_epochs=1, minibatch_size=RL_PPO["minibatch"], seed=0),
+        "ppo cartpole", dev)
+    out = {"launches": counts, "ppo_cartpole": ppo,
+           "atari": _rl_atari(torch, seed, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(dqn=_rl_dqn(torch, seed, dev),
+               impala=_rl_impala(torch, seed, dev),
+               sac=_rl_sac(torch, seed, dev), bc=_rl_bc(torch, seed, dev))
+    if dev is None:
+        out["mesh"] = _rl_mesh(torch, seed, batch)
+    out["card"] = card_line()
+    report["rllib"] = out
+
+
 # ---------------------------------------------------------------- parallel
 #
 # Four ranks on the one card.  NCCL refuses two ranks on one device, so
@@ -3318,13 +3900,15 @@ def main(argv=None) -> int:
     phase_mlp(torch, report, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_rllib(torch, report, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_parallel(torch, report, args.seed, card)
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
-                          "multitenant",
-                          "train", "remat", "moe")}
+                          "multitenant", "train", "remat", "moe", "rllib")}
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

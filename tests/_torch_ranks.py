@@ -266,4 +266,54 @@ def sharded(rank: int, cases):
     return res
 
 
-__all__ = ["run", "collectives", "ring", "pipeline", "sharded"]
+# --------------------------------------------------------- rllib learners
+
+
+def rllib_mesh(rank: int, cases):
+    """The rllib learners' ``mesh=`` updates at dp 2: PPO's
+    ``update_from_batch``, DQN's and IMPALA's updates, each from the JAX
+    learner's weights (field lists of numpy arrays); returns each one's
+    last metrics and parameters, and whether a minibatch that does not
+    divide over the ranks raised ``ValueError``."""
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.rllib import (DQNLearner, ImpalaLearner, PPOLearner,
+                                     policy_params_from_jax,
+                                     q_params_from_jax)
+
+    mesh = make_mesh(MeshConfig(dp=2, fsdp=1), device="cpu")
+    out = {}
+
+    def state(params):
+        return {k: v.detach().numpy().copy()
+                for k, v in params.state_dict().items()}
+
+    c = cases["ppo"]
+    ppo = PPOLearner(4, 2, mesh=mesh, device="cpu")
+    ppo.set_weights(c["weights"])
+    m = ppo.update_from_batch(c["batch"], **c["kw"])
+    try:
+        ppo.update_from_batch(c["batch"], num_epochs=1, minibatch_size=15)
+        uneven = False
+    except ValueError:
+        uneven = True
+    out["ppo"] = (m, state(ppo.params), uneven)
+
+    c = cases["dqn"]
+    dqn = DQNLearner(4, 2, mesh=mesh, device="cpu", **c["kw"])
+    q0 = q_params_from_jax(c["weights"], "cpu").state_dict()
+    dqn.params.load_state_dict(q0)
+    dqn.target_params.load_state_dict(q0)
+    ms = [dqn.update_from_batch(b) for b in c["batches"]]
+    out["dqn"] = (ms[-1], state(dqn.params))
+
+    c = cases["impala"]
+    imp = ImpalaLearner(4, 2, mesh=mesh, device="cpu")
+    imp.params.load_state_dict(
+        policy_params_from_jax(c["weights"], "cpu").state_dict())
+    ms = [imp.update_from_fragments(f) for f in c["fragments"]]
+    out["impala"] = (ms[-1], state(imp.params))
+    return out
+
+
+__all__ = ["run", "collectives", "ring", "pipeline", "sharded",
+           "rllib_mesh"]

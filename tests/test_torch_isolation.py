@@ -54,7 +54,7 @@ def test_import_leaves_ray_tpu_unloaded():
             "ray_tpu_torch.util.trace_analysis, "
             "ray_tpu_torch.devtools.jitguard, ray_tpu_torch.parallel, "
             "ray_tpu_torch.collective.mesh_ops, "
-            "ray_tpu_torch.ops.ring_attention; "
+            "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.rllib; "
             "print(sorted(m for m in sys.modules if m == 'ray_tpu' "
             "or m.startswith('ray_tpu.')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
