@@ -75,25 +75,50 @@ no result line):
    prompt served alone from the cache and cold.  K1 is timed at a suffix
    shape (Sq 64, Sk 576, q_offset 384) beside the plain version and SDPA
    with an explicit boolean mask.
-11. train: the serving model is freed; ``make_train_step(llama_loss)``
+11. runtime: the port's runtime core on the card.  ``rt.init(num_cpus=4)``
+   in this process (the object store sized to half of ``/dev/shm``'s free
+   space, at most 4 GiB) must autodetect ``GPU: 1``.  An ungranted task
+   sees ``CUDA_VISIBLE_DEVICES=""`` and its ``resolve_device()`` raises.
+   Layer 0 of the 8B model (a CPU ``Block``, 218.1 M parameters, 436 MB
+   of bf16) and a seeded [1, 2048, 4096] activation go through ``put``; a
+   ``num_gpus=1`` task gets both by ``ObjectRef``, runs ``_block`` on the
+   card (K1 once, K4 twice) and returns a CUDA tensor, whose ``get`` must
+   be a CPU tensor bit-identical to ``_block`` run here (put and get GB/s
+   printed).  The serve phase's 12 prompts are served greedily one at a
+   time in process, then by a ``num_gpus=1`` actor that builds the same
+   8B weights from the seed (fp64 checksums equal to this process's) and
+   an engine of the serve phase's config: tokens equal token for token.
+   Both sides then serve the prompts twice more, by one function in each
+   process (32 tokens, then 1), and report the engine's own TTFT split
+   into its queue wait and its prefill, for the first pass (the actor's
+   process is cold) and the warm ones; the first token through an actor
+   call, and the task and actor round trips.  The actor's step records
+   (17 fields), spans and devmem pools must reach the head's
+   ``list_state``.  While the actor holds the card a second ``num_gpus=1``
+   task stays pending, and runs on the card once the actor is killed.
+   ``nvidia-smi`` may list no more compute processes than this one and the
+   granted workers; in a container whose ``nvidia-smi`` reports pids of
+   another namespace that is a count only, since those pids cannot be
+   told apart (the ungranted probe is what proves isolation).
+12. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind).
-12. remat: on the same model and optimizer state, ``full`` (the others'
+13. remat: on the same model and optimizer state, ``full`` (the others'
    reference in this phase), then each of ``save_attn``, ``save_dots``,
    ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
    policy that would not fit runs last on a fresh model at the deepest
    depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
    memory, allocator retries, SM clock) and one step under the profiler
    (idle share, time by kernel kind).
-13. train check: a 2-layer full-width model's loss and every gradient in
+14. train check: a 2-layer full-width model's loss and every gradient in
    bf16 (K4's backward included) against the same weights in fp32 on the
    CPU through the plain path (B=1, S=256); then under each of the six
    remat policies a 2-layer model's loss and gradients at S=2048 against
    ``full``'s on the card (bit-identical, or within 2^-8).
-14. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+15. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
    6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
    ``moe_apply`` forward, 2 warm and 5 timed
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
@@ -103,9 +128,9 @@ no result line):
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
-15. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+16. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
-16. rllib: the learners, models and in-process env runners of
+17. rllib: the learners, models and in-process env runners of
    ``ray_tpu_torch.rllib`` on the card in fp32, none given a device.  (a)
    The main path: PPO on CartPole at ``PPOConfig``'s defaults (two
    ``EnvRunner``s of 8 envs x 64 steps, GAE, ``update_from_batch`` of 10
@@ -126,7 +151,7 @@ no result line):
    relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
    Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
    ``mesh=`` dp 2 against the one-process update.
-17. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+18. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -153,7 +178,10 @@ no result line):
 Kernel launch counters are zeroed just before the tiny serve, the
 forward, the serve, the observe mix, the multitenant, the train, each
 remat policy's, the moe and the rllib paths run and read just after (the
-rllib path launches none of the csrc kernels): K1 and K4's
+rllib path launches none of the csrc kernels).  On the runtime path the
+GPU task and the engine actor zero their own process's counters just
+before their main path and return them after it: the task must launch K1
+once and K4 twice, the actor K1 and K4's forward.  K1 and K4's
 forward must have launched on the tiny serve, forward, serve and observe
 paths (K4's backward never), on the multitenant path K1 once a layer per
 prefill and K4's forward once a norm per program call.  Per layer and step a train step
@@ -1601,6 +1629,479 @@ def phase_observe(torch, report, cfg, params, seed: int):
         os.environ.pop(jitguard.ENV_FLAG, None)
         jitguard.disarm()
     report["observe"] = out
+
+
+# ---------------------------------------------------------------- runtime
+#
+# The port's runtime core on the card: a cluster started by ``rt.init`` in
+# this process, a GPU task that runs layer 0 of the 8B model from the
+# object store, and an 8B engine actor, each on a worker granted the card
+# (``num_gpus=1``).  Kernel launch counts are read in those processes and
+# returned.  Every check is fatal: the phase catches nothing.
+
+#: The JAX engine's step record fields (``ray_tpu/serve/engine.py``).
+_STEP_FIELDS = {
+    "t", "engine", "step", "wall_s", "stall_s", "occupancy", "slots",
+    "admitted", "evicted", "shed", "queued", "pages_used", "pages_free",
+    "pages_shared", "prefix_hits", "adapter_pins", "tenants",
+}
+
+
+def _rt_block_task(cfg, layer, x):
+    """The GPU task's body: layer 0 on the card through ``_block`` (K4 on
+    both norms, K1 in between); the output stays a CUDA tensor."""
+    import torch
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.models.llama import _block
+    from ray_tpu_torch.ops.rotary import rope_frequencies
+
+    dev = resolve_device()
+    layer, x = layer.to(dev), x.to(dev)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=dev)
+    _reset_counts()
+    with torch.no_grad():
+        out = _block(cfg, x, layer, cos, sin)
+    torch.cuda.synchronize()
+    return (out, _read_counts(), os.environ.get("CUDA_VISIBLE_DEVICES"),
+            os.getpid())
+
+
+def _rt_probe_task():
+    """An ungranted or granted task's view of the card."""
+    import torch
+
+    from ray_tpu_torch import resolve_device
+
+    try:
+        dev = str(resolve_device())
+    except RuntimeError as e:
+        dev = f"RuntimeError: {e}"
+    return {"pid": os.getpid(), "cuda_available": torch.cuda.is_available(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "resolve_device": dev}
+
+
+class _RtEngineActor:
+    """An 8B ``InferenceEngine`` in its own process on a granted card."""
+
+    def __init__(self, seed: int, ecfg: dict):
+        import torch
+
+        from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        self.cfg = LlamaConfig.llama3_8b()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.params = llama_init(self.cfg, gen)
+        self.engine = InferenceEngine(self.cfg, self.params,
+                                      EngineConfig(**ecfg), seed=seed)
+
+    def info(self):
+        import torch
+
+        return {"pid": os.getpid(), "engine_id": self.engine.engine_id,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}
+
+    def checksums(self):
+        return _rt_checksums(self.params)
+
+    def reset_counts(self):
+        _reset_counts()
+
+    def read_counts(self):
+        return _read_counts()
+
+    def serve(self, prompts, new: int):
+        return _rt_serve(self.engine, prompts, new)
+
+    def threads(self):
+        return _rt_threads()
+
+    def generate(self, prompt, new: int, traced: bool = False):
+        from ray_tpu_torch.util import tracing
+
+        if traced:
+            with tracing.trace("runtime-actor-request", force=True) as root:
+                stream = self.engine.submit(prompt, max_new_tokens=new)
+                toks = list(stream)
+            return toks, stream.ttft_s, root["trace_id"]
+        stream = self.engine.submit(prompt, max_new_tokens=new)
+        return list(stream), stream.ttft_s, None
+
+    def ping(self):
+        return 0
+
+
+def _rt_serve(engine, prompts, new: int):
+    """Serve ``prompts`` one at a time; per request its tokens and the
+    engine's own timings: TTFT (submit to the first token's emission),
+    split into the queue wait (submit to admission) and the prefill
+    (admission to the first token), in seconds.  The driver and the actor
+    run this same function, so both sides measure alike."""
+    recs = []
+    for p in prompts:
+        stream = engine.submit(p, max_new_tokens=new)
+        toks = list(stream)
+        req = stream._req
+        recs.append({"tokens": toks, "ttft_s": stream.ttft_s,
+                     "queue_s": req.admit_wall - req.submit_wall,
+                     "prefill_s": req.first_wall - req.admit_wall})
+    return recs
+
+
+def _rt_threads():
+    """What could compete with an engine for this process's host: its
+    Python threads, torch's intra-op threads, the CPUs it may run on and
+    the interpreter's switch interval."""
+    import threading
+
+    import torch
+
+    names = sorted(t.name for t in threading.enumerate())
+    return {"python_threads": len(names), "names": names,
+            "torch_threads": torch.get_num_threads(),
+            "cpus": len(os.sched_getaffinity(0)),
+            "switch_interval_s": sys.getswitchinterval()}
+
+
+def _rt_ttft(recs):
+    """p50s in ms of `_rt_serve`'s timings."""
+    return {k: _rt_p50([r[k + "_s"] for r in recs]) * 1e3
+            for k in ("ttft", "queue", "prefill")}
+
+
+def _rt_checksums(params):
+    """Per-tensor fp64 sums of a model's weights, by name."""
+    return {n: float(p.double().sum()) for n, p in params.named_parameters()}
+
+
+def _rt_p50(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _rt_state(rt, kind):
+    from ray_tpu_torch.core.context import ctx
+
+    return ctx.client.call("list_state", {"kind": kind})["items"]
+
+
+def phase_runtime(torch, report, cfg, params, seed: int, card: str):
+    """The runtime core on the card (``rt.init``, a GPU task through the
+    object store, an 8B engine actor, isolation); see the module
+    docstring's phase list."""
+    import ray_tpu_torch as rt
+
+    out = {"card": card}
+    shm = os.statvfs("/dev/shm")
+    shm_bytes = shm.f_frsize * shm.f_blocks
+    shm_free = shm.f_frsize * shm.f_bavail
+    store = int(min(4 << 30, shm_free // 2))
+    out.update(shm_bytes=shm_bytes, shm_free=shm_free,
+               object_store_memory=store)
+    print(f"[runtime] /dev/shm {shm_bytes / 2**30:.1f} GiB "
+          f"({shm_free / 2**30:.1f} free); object_store_memory "
+          f"{store / 2**30:.2f} GiB", flush=True)
+    check("RT_GPUS" not in os.environ,
+          "the GPU count must come from autodetection, not RT_GPUS")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, object_store_memory=store)
+    try:
+        out["init_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        out["resources"] = res
+        check(res.get("GPU") == 1.0,
+              f"autodetected GPU resource {res.get('GPU')}, expected 1")
+        _runtime_paths(torch, rt, out, cfg, params, seed)
+    finally:
+        rt.shutdown()
+    report["runtime"] = out
+
+
+def _runtime_paths(torch, rt, out, cfg, params, seed):
+    """``phase_runtime``'s paths on a started cluster; fills ``out``."""
+    from ray_tpu_torch.core import object_store
+    from ray_tpu_torch.models.llama import Block, _block
+    from ray_tpu_torch.ops.rotary import rope_frequencies
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    card = out["card"]
+    noop = rt.remote(lambda: 0)
+    probe = rt.remote(_rt_probe_task)
+    rt.get(noop.remote())  # a warm worker
+    rtt = []
+    for _ in range(20):
+        t = time.perf_counter()
+        rt.get(noop.remote())
+        rtt.append(time.perf_counter() - t)
+    out["task_rtt_p50_ms"] = _rt_p50(rtt) * 1e3
+
+    # -- isolation: an ungranted task sees no card ------------------------
+    seen = rt.get(probe.remote(), timeout=300)
+    out["ungranted"] = seen
+    print(f"[runtime] ungranted task: CUDA_VISIBLE_DEVICES="
+          f"{seen['visible']!r}, torch.cuda.is_available() "
+          f"{seen['cuda_available']}, resolve_device() -> "
+          f"{seen['resolve_device']}", flush=True)
+    check(seen["visible"] == "" and not seen["cuda_available"]
+          and seen["resolve_device"].startswith("RuntimeError: CUDA is not "
+                                                "available"),
+          f"an ungranted task reached the card: {seen}")
+
+    # -- layer 0 of the 8B model through the object store ----------------
+    layer = Block(cfg, "cpu")
+    layer.load_state_dict({k: v.cpu() for k, v
+                           in params.layers[0].state_dict().items()})
+    n_layer = sum(p.numel() for p in layer.parameters())
+    layer_bytes = sum(p.numel() * p.element_size()
+                      for p in layer.parameters())
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((1, 2048, cfg.d_model), generator=gen).to(cfg.dtype)
+    object_store.reset_put_stages()
+    t = time.perf_counter()
+    layer_ref = rt.put(layer)
+    put_s = time.perf_counter() - t
+    stages = object_store.put_stage_snapshot()
+    # The same bytes as one numpy array: what a put costs without tensors.
+    flat = np.ones(layer_bytes, dtype=np.uint8)
+    t = time.perf_counter()
+    flat_ref = rt.put(flat)
+    np_put_s = time.perf_counter() - t
+    del flat_ref, flat
+    x_ref = rt.put(x)
+    t = time.perf_counter()
+    back = rt.get(layer_ref)
+    get_s = time.perf_counter() - t
+    check(all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                 layer.parameters())),
+          "layer 0 from get differs from the layer put")
+    del back
+    out["layer"] = {"params": n_layer, "bytes": layer_bytes,
+                    "put_s": put_s, "get_s": get_s,
+                    "put_gb_s": layer_bytes / put_s / 1e9,
+                    "get_gb_s": layer_bytes / get_s / 1e9,
+                    "put_stages_s": {k: v["seconds"]
+                                     for k, v in stages.items()},
+                    "numpy_put_gb_s": layer_bytes / np_put_s / 1e9}
+    block_task = rt.remote(num_gpus=1)(_rt_block_task)
+    t = time.perf_counter()
+    got, task_counts, task_visible, task_pid = rt.get(
+        block_task.remote(cfg, layer_ref, x_ref), timeout=600)
+    task_s = time.perf_counter() - t
+    dev = params.layers[0].attn.wq.device
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=dev)
+    with torch.no_grad():
+        ref = _block(cfg, x.to(dev), params.layers[0], cos, sin).cpu()
+    check(got.device.type == "cpu" and got.dtype == ref.dtype
+          and got.shape == ref.shape,
+          f"the task's CUDA output came back as {got.device} {got.dtype} "
+          f"{tuple(got.shape)}")
+    same = bool(torch.equal(got.view(torch.int16), ref.view(torch.int16)))
+    max_abs = float((got.float() - ref.float()).abs().max())
+    out["layer"].update(task_s=task_s, launches=task_counts,
+                        visible=task_visible, bit_identical=same,
+                        max_abs_err=max_abs)
+    stage_ms = {k: round(v["seconds"] * 1e3, 1) for k, v in stages.items()}
+    print(f"[runtime] layer 0 of Llama-3-8B ({n_layer / 1e6:.1f} M params, "
+          f"{layer_bytes / 1e6:.1f} MB bf16) put {put_s * 1e3:.1f} ms "
+          f"({out['layer']['put_gb_s']:.2f} GB/s; by stage, ms: "
+          f"{stage_ms}"
+          f"; the same bytes as one numpy array "
+          f"{out['layer']['numpy_put_gb_s']:.2f} GB/s), get "
+          f"{get_s * 1e3:.1f} ms ({out['layer']['get_gb_s']:.2f} GB/s); "
+          f"the num_gpus=1 task (CUDA_VISIBLE_DEVICES={task_visible!r}) ran "
+          f"_block on [1, 2048, 4096] in {task_s:.2f} s wall (a fresh "
+          f"worker, torch import and CUDA start included); output "
+          f"bit-identical to this process's _block: {same} (max abs "
+          f"{max_abs:.3g}); launches {task_counts}; {card}", flush=True)
+    check(task_visible == "0", f"the granted task saw "
+                               f"CUDA_VISIBLE_DEVICES={task_visible!r}")
+    check(same, f"the GPU task's _block differs from this process's "
+                f"(max abs {max_abs})")
+    check(task_counts["flash_fwd"] == 1 and task_counts["rms_norm"] == 2,
+          f"the GPU task did not launch K1 once and K4 twice: {task_counts}")
+    del layer, layer_ref, x_ref, got, ref
+
+    # -- the in-process engine first, then the actor ---------------------
+    ecfg = dict(batch_slots=8, page_size=16, max_prompt_len=512,
+                max_new_tokens_cap=64, prefix_cache=False)
+    new = 32
+    prompts, _, _ = _serve_mix_prompts(cfg, seed)
+    prompts = [[int(t) for t in p] for p in prompts]
+    engine = InferenceEngine(cfg, params, EngineConfig(**ecfg), seed=seed)
+    try:
+        local = _rt_serve(engine, prompts, new)
+        local_warm = _rt_serve(engine, prompts, new)
+        local_one = _rt_serve(engine, prompts, 1)
+        local_threads = _rt_threads()
+    finally:
+        engine.shutdown()
+    del engine
+    sums = _rt_checksums(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    actor_cls = rt.remote(num_gpus=1)(_RtEngineActor)
+    t = time.perf_counter()
+    actor = actor_cls.remote(seed, ecfg)
+    info = rt.get(actor.info.remote(), timeout=900)
+    out["actor_start_s"] = time.perf_counter() - t
+    out["actor"] = info
+    check(info["visible"] == "0" and info["count"] == 1,
+          f"the actor's card: {info}")
+    actor_sums = rt.get(actor.checksums.remote(), timeout=300)
+    diff = [n for n in sums if actor_sums.get(n) != sums[n]]
+    check(set(actor_sums) == set(sums) and not diff,
+          f"the actor's weights differ from this process's: {diff[:5]}")
+    rt.get(actor.reset_counts.remote())
+    remote = rt.get(actor.serve.remote(prompts, new), timeout=600)
+    actor_counts = rt.get(actor.read_counts.remote())
+    remote_warm = rt.get(actor.serve.remote(prompts, new), timeout=600)
+    remote_one = rt.get(actor.serve.remote(prompts, 1), timeout=600)
+    actor_threads = rt.get(actor.threads.remote())
+    match = [r["tokens"] == l["tokens"] for r, l in zip(remote, local)]
+    check(all(match), f"the actor's greedy tokens differ from the "
+                      f"in-process engine's on requests "
+                      f"{[i for i, m in enumerate(match) if not m]}")
+    check(actor_counts["flash_fwd"] > 0 and actor_counts["rms_norm"] > 0
+          and actor_counts["rms_norm_bwd"] == 0,
+          f"the actor's serving did not launch K1 and K4: {actor_counts}")
+    # Timing through the actor: a first token (max_new_tokens=1) per
+    # prompt timed at this process, and the bare call's round trip.
+    first = []
+    for p in prompts:
+        t = time.perf_counter()
+        rt.get(actor.generate.remote(p, 1))
+        first.append(time.perf_counter() - t)
+    pings = []
+    for _ in range(20):
+        t = time.perf_counter()
+        rt.get(actor.ping.remote())
+        pings.append(time.perf_counter() - t)
+    passes = {"first": (local, remote), "warm": (local_warm, remote_warm),
+              "one_token": (local_one, remote_one)}
+    out["serve"] = {
+        "requests": len(prompts), "new_tokens": new,
+        "tokens_equal": all(match),
+        "ttft_p50_ms": {name: {"in_process": _rt_ttft(a),
+                               "in_actor": _rt_ttft(b)}
+                        for name, (a, b) in passes.items()},
+        "ttft_in_process_ms": {name: [r["ttft_s"] * 1e3 for r in a]
+                               for name, (a, _) in passes.items()},
+        "ttft_in_actor_ms": {name: [r["ttft_s"] * 1e3 for r in b]
+                             for name, (_, b) in passes.items()},
+        "threads": {"in_process": local_threads, "in_actor": actor_threads},
+        "first_token_through_actor_p50_ms": _rt_p50(first) * 1e3,
+        "actor_call_rtt_p50_ms": _rt_p50(pings) * 1e3,
+        "launches": actor_counts}
+    sv = out["serve"]
+    split = "; ".join(
+        f"{name}: TTFT {v['in_process']['ttft']:.1f} / "
+        f"{v['in_actor']['ttft']:.1f} ms (queue "
+        f"{v['in_process']['queue']:.2f} / {v['in_actor']['queue']:.2f}, "
+        f"prefill {v['in_process']['prefill']:.1f} / "
+        f"{v['in_actor']['prefill']:.1f})"
+        for name, v in sv["ttft_p50_ms"].items())
+    print(f"[runtime] 8B engine actor (CUDA_VISIBLE_DEVICES="
+          f"{info['visible']!r}, started in {out['actor_start_s']:.1f} s, "
+          f"weights equal to this process's by {len(sums)} fp64 "
+          f"checksums): {len(prompts)} greedy requests x {new} tokens, one "
+          f"at a time, equal token for token to the in-process engine's; "
+          f"engine p50s in process / in the actor, by pass: {split}; "
+          f"first token through an actor call "
+          f"{sv['first_token_through_actor_p50_ms']:.1f} ms; actor call "
+          f"round trip {sv['actor_call_rtt_p50_ms']:.2f} ms, task round "
+          f"trip {out['task_rtt_p50_ms']:.2f} ms (p50 of 20); threads "
+          f"in process / in the actor: python "
+          f"{local_threads['python_threads']} / "
+          f"{actor_threads['python_threads']}, torch "
+          f"{local_threads['torch_threads']} / "
+          f"{actor_threads['torch_threads']}, cpus {local_threads['cpus']} "
+          f"/ {actor_threads['cpus']}; launches {actor_counts}; {card}",
+          flush=True)
+
+    # -- observability across the process boundary -----------------------
+    _, _, trace_id = rt.get(actor.generate.remote(prompts[0], 4, True),
+                            timeout=300)
+    steps, spans, devmem = [], [], []
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        steps = [r for g in _rt_state(rt, "engine_steps")
+                 if g["engine"] == info["engine_id"] for r in g["records"]]
+        spans = [e for e in _rt_state(rt, "timeline")
+                 if e.get("kind") == "span" and e.get("trace_id") == trace_id]
+        devmem = [d for d in _rt_state(rt, "devmem")
+                  if d["pid"] == info["pid"]]
+        names = {s["name"] for s in spans}
+        if steps and devmem and {"engine:queue", "engine:prefill",
+                                 "engine:decode"} <= names:
+            break
+        time.sleep(0.5)
+    fields = set().union(*(set(r) for r in steps)) if steps else set()
+    pools = devmem[0]["devmem"]["pools"] if devmem else {}
+    out["observe"] = {"step_records": len(steps),
+                      "step_fields": sorted(fields),
+                      "span_names": sorted({s["name"] for s in spans}),
+                      "devmem_pools": sorted(pools),
+                      "devmem_live_bytes": devmem[0]["devmem"]["live_bytes"]
+                      if devmem else None}
+    print(f"[runtime] at the head: {len(steps)} step records of the "
+          f"actor's engine ({len(fields)} fields), spans "
+          f"{out['observe']['span_names']} of its traced request, devmem "
+          f"pools {sorted(pools)}", flush=True)
+    check(steps and fields == _STEP_FIELDS,
+          f"the actor's step records at the head: {len(steps)} with fields "
+          f"{sorted(fields)}")
+    check({"runtime-actor-request", "engine:queue", "engine:prefill",
+           "engine:decode"} <= set(out["observe"]["span_names"]),
+          f"the actor's spans at the head: {out['observe']['span_names']}")
+    check({"model_weights", "kv_pool"} <= set(pools)
+          and pools["model_weights"] > 0,
+          f"the actor's devmem report at the head: {devmem}")
+
+    # -- isolation: the card is held, so a second GPU task waits ---------
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    listed = sorted(int(x) for x in apps.stdout.split() if x.strip())
+    allowed = {os.getpid(), info["pid"], task_pid}
+    out["compute_apps"] = {"listed": listed, "allowed": sorted(allowed)}
+    pending = probe.options(num_gpus=1).remote()
+    ready, _ = rt.wait([pending], timeout=5.0)
+    out["second_task_pending_while_held"] = not ready
+    check(not ready, "a second num_gpus=1 task ran while the actor held "
+                     "the one card")
+    rt.kill(actor)
+    t = time.perf_counter()
+    after = rt.get(pending, timeout=300)
+    out["second_task_after_kill"] = dict(after, wait_s=time.perf_counter()
+                                         - t)
+    check(after["visible"] == "0" and after["cuda_available"],
+          f"the second GPU task after the kill: {after}")
+    print(f"[runtime] a second num_gpus=1 task stayed pending while the "
+          f"actor held the card and ran {time.perf_counter() - t:.2f} s "
+          f"after its kill (CUDA_VISIBLE_DEVICES={after['visible']!r}); "
+          f"nvidia-smi compute apps {listed} (this process {os.getpid()}, "
+          f"the actor {info['pid']})", flush=True)
+    if listed and os.getpid() in listed:
+        check(set(listed) <= allowed,
+              f"a process the runtime did not grant holds the card: "
+              f"{listed} (allowed {sorted(allowed)})")
+    else:
+        # The container's nvidia-smi shows no pids, or pids of another
+        # namespace, which cannot be mapped to this one's: then this is a
+        # count only, and an ungranted worker on the card would pass it in
+        # place of a granted one.  The ungranted probe above is what shows
+        # that a worker without a grant cannot reach the card.
+        check(len(listed) <= len(allowed),
+              f"nvidia-smi lists {listed}: more than the driver and the "
+              f"granted actor")
+    counts = {k: task_counts[k] + actor_counts[k] for k in task_counts}
+    out["launches"] = counts
 
 
 def _serve_all(engine, jobs, new: int):
@@ -3880,6 +4381,7 @@ def main(argv=None) -> int:
     phase_serve_profile(torch, report, cfg, params, args.seed)
     phase_observe(torch, report, cfg, params, args.seed)
     phase_multitenant(torch, report, cfg, params, args.seed)
+    phase_runtime(torch, report, cfg, params, args.seed, card)
     del params  # the serving model makes room for training
     gc.collect()
     torch.cuda.empty_cache()
@@ -3908,7 +4410,8 @@ def main(argv=None) -> int:
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
-                          "multitenant", "train", "remat", "moe", "rllib")}
+                          "multitenant", "runtime", "train", "remat", "moe",
+                          "rllib")}
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

@@ -1,16 +1,74 @@
-"""PyTorch/CUDA port of ray_tpu's serving path, for NVIDIA Hopper (H100).
+"""PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper (H100).
 
 A second package beside the JAX ``ray_tpu``, which stays the reference it
-is held against.  It follows ``ray_tpu``'s layout and names (``ops``,
-``models``, ``serve``, ``parallel``, ``collective``) so each module's
-counterpart is easy to find, and
-imports only torch, numpy and the standard library: nothing of JAX and
-nothing of ``ray_tpu``.  The Pallas TPU kernels on its path are kernels
-written by hand in CUDA C++ under ``csrc/``, built with nvcc at first use
-(``_build.py``).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+is held against.  It follows ``ray_tpu``'s layout and names (``core``,
+``ops``, ``models``, ``serve``, ``parallel``, ``collective``, ``rllib``) so
+each module's counterpart is easy to find, and imports only torch, numpy,
+cloudpickle, msgpack and the standard library: nothing of JAX and nothing of
+``ray_tpu``.  The Pallas TPU kernels on its path are kernels written by hand
+in CUDA C++ under ``csrc/``, built with nvcc at first use (``_build.py``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
+
+The runtime core is the JAX package's, with GPU grants in place of TPU chip
+grants: ``init``, ``@remote`` tasks and actors (``num_gpus=n``), ``put``,
+``get``, ``wait``, ``kill``, ``cancel`` and placement groups.  Importing the
+package loads neither torch nor CUDA (the worker zygote imports it before
+it forks); ``resolve_device`` loads torch on first use.
 """
 
-from .device import resolve_device
+from .core.api import (
+    ActorClass,
+    ActorHandle,
+    NodeAffinitySchedulingStrategy,
+    PlacementGroup,
+    PlacementGroupSchedulingStrategy,
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    get_actor,
+    get_log,
+    init,
+    is_initialized,
+    kill,
+    list_named_actors,
+    method,
+    nodes,
+    placement_group,
+    put,
+    remote,
+    remove_placement_group,
+    shutdown,
+    stack_dump,
+    task_events,
+    timeline,
+    wait,
+)
+from .core.context import get_runtime_context
+from .core.object_ref import ObjectRef, ObjectRefGenerator
+from . import exceptions
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``resolve_device`` imports torch, so it loads on first touch."""
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        globals()[name] = resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = [
+    "init", "shutdown", "is_initialized", "remote", "method", "get", "put",
+    "wait",
+    "cancel", "kill", "get_actor", "list_named_actors", "placement_group",
+    "remove_placement_group", "PlacementGroup",
+    "PlacementGroupSchedulingStrategy", "NodeAffinitySchedulingStrategy",
+    "cluster_resources", "available_resources", "nodes", "timeline",
+    "task_events", "get_log", "stack_dump",
+    "ObjectRef", "ObjectRefGenerator", "ActorClass", "ActorHandle",
+    "exceptions", "get_runtime_context", "resolve_device", "__version__",
+]

@@ -12,7 +12,7 @@ cloning as the marquee offline algorithm).
 
 The on-disk format is JSONL where each line is one flat sample batch
 (columns -> lists), so files stream without loading whole datasets, shard
-across ray_tpu.data tasks, and stay human-readable.
+across the data library's tasks, and stay human-readable.
 """
 
 from __future__ import annotations

@@ -8,35 +8,35 @@ format (same escaping, same number format, cumulative histogram buckets).
 ``get_counter`` / ``get_gauge`` / ``get_histogram`` return one process-wide
 instrument per name (first call wins), so hot paths hoist them once.
 
-The port has no runtime yet: no head to aggregate at and no client to ship
-through.  ``flush_metrics()`` is the JAX flusher's one round
-(``_flush_once``) and behaves as it does when ``ctx.client is None``: it
-returns 0, and no flusher thread is ever started.  Given a client it ships
-every row as one ``metrics_report`` call.  The JAX package's
-``metrics_flush_interval_s`` default (2.0 s, ``ray_tpu/core/config.py``)
-stays here behind ``_cfg()`` for the flusher the runtime will bring.  This
-module imports nothing of JAX and nothing of ``ray_tpu``.
+As in the JAX package, the first instrument a process registers starts a
+background flusher (``_ensure_flusher``): every ``metrics_flush_interval_s``
+(``_cfg()``, the runtime's config) it ships every row as one
+``metrics_report`` call through the runtime's client (``ctx.client``), which
+the head aggregates across processes, and an atexit hook ships the last
+window (``_final_flush``).  ``flush_metrics(client)`` is one such round;
+with no client, and no runtime started, it returns 0.  This module imports
+nothing of JAX and nothing of ``ray_tpu``.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import threading
-import types
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-#: ``ray_tpu/core/config.py``'s default for this module; tests may replace
-#: ``_cfg`` to change it.
-_DEFAULTS = types.SimpleNamespace(metrics_flush_interval_s=2.0)
-
-
 def _cfg():
-    return _DEFAULTS
+    """The runtime's config (tests may replace this hook)."""
+    from ..core.config import get_config
+
+    return get_config()
 
 
 _registry_lock = threading.Lock()
 _instruments: List["_Metric"] = []
 _named: Dict[Tuple[str, str], "_Metric"] = {}  # (kind, name) -> instrument
+_flusher_started = False
 
 
 def _tags_key(tags: Optional[Dict[str, str]]) -> Tuple:
@@ -49,7 +49,8 @@ class _Metric:
     def __init__(self, name: str, description: str = "",
                  tag_keys: Sequence[str] = (), register: bool = True):
         """``register=False`` keeps the instrument out of the process
-        registry that ``flush_metrics`` reads."""
+        flusher — used by the head, which aggregates its own instruments
+        directly instead of reporting to itself over RPC."""
         self.name = name
         self.description = description
         self.tag_keys = tuple(tag_keys)
@@ -58,6 +59,7 @@ class _Metric:
         if register:
             with _registry_lock:
                 _instruments.append(self)
+            _ensure_flusher()
 
     def _snapshot(self) -> List[dict]:
         with self._lock:
@@ -146,6 +148,7 @@ def _get_named(key: Tuple[str, str], make) -> "_Metric":
         if m is None:
             m = _named[key] = make()
             _instruments.append(m)
+    _ensure_flusher()
     return m
 
 
@@ -184,9 +187,13 @@ def snapshot_rows() -> List[dict]:
 
 
 def flush_metrics(client=None) -> int:
-    """Ship every row as one ``metrics_report`` call through ``client``;
-    returns the rows shipped.  With no client (the port has no runtime
-    yet) this returns 0."""
+    """Ship every row as one ``metrics_report`` call through ``client``
+    (default: the runtime's, ``ctx.client``); returns the rows shipped.
+    With no client this returns 0."""
+    if client is None:
+        from ..core.context import ctx
+
+        client = ctx.client
     if client is None:
         return 0
     rows = snapshot_rows()
@@ -197,6 +204,48 @@ def flush_metrics(client=None) -> int:
     except Exception:
         return 0
     return len(rows)
+
+
+def _flush_once():
+    flush_metrics()
+
+
+def _flush_interval() -> float:
+    try:
+        return max(0.1, float(_cfg().metrics_flush_interval_s))
+    except Exception:
+        return 2.0
+
+
+def _final_flush():
+    """atexit hook: ship the last window of deltas so short-lived workers
+    (a task-pool worker reaped right after its task, a driver script that
+    exits immediately) don't lose their final metrics."""
+    try:
+        _flush_once()
+        from ..core.context import ctx
+
+        # Short drain bound: a wedged head must not stall process exit.
+        if ctx.client is not None:
+            ctx.client.drain_bg(timeout=2.0)
+    except Exception:
+        pass
+
+
+def _ensure_flusher():
+    global _flusher_started
+    with _registry_lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+
+    def loop():
+        while True:
+            time.sleep(_flush_interval())
+            _flush_once()
+
+    threading.Thread(target=loop, daemon=True, name="metrics-flush").start()
+    atexit.register(_final_flush)
 
 
 # -- Prometheus exposition ----------------------------------------------------

@@ -18,14 +18,13 @@ module keeps it without ever blocking the loop:
 3. **Tests and harnesses** — ``drain_buffered()`` hands back the unflushed
    records.
 
-The port has no runtime yet, so there is no head and no client:
-``flush_steps()`` refreshes the black box and then behaves as the JAX one
-does when ``ctx.client is None`` (it returns 0 and the records stay in the
-ring); given a client it ships the ring as one ``engine_step_batch``
-through its ``call_batched``.  The defaults of ``ray_tpu/core/config.py``
-(``step_ring_size`` 2048, ``step_dump_records`` 256,
-``step_dump_interval_s`` 1.0) stay here behind ``_cfg()``, which tests may
-replace.  This module imports nothing of JAX and nothing of ``ray_tpu``.
+``flush_steps()`` refreshes the black box and then ships the ring as one
+``engine_step_batch`` through the runtime client's ``call_batched``
+(``ctx.client``, which the worker's report loop flushes on its cadence);
+the head keeps them for ``list_state(kind="engine_steps")``.  With no
+client (no runtime, or headless) the records stay in the ring.  The sizes
+come from the runtime's config through ``_cfg()``, which tests may replace.
+This module imports nothing of JAX and nothing of ``ray_tpu``.
 """
 
 from __future__ import annotations
@@ -35,14 +34,10 @@ import logging
 import os
 import threading
 import time
-import types
 from collections import deque
 from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger("ray_tpu_torch.steprec")
-
-_DEFAULTS = types.SimpleNamespace(step_ring_size=2048, step_dump_records=256,
-                                  step_dump_interval_s=1.0)
 
 _ring: deque = deque()
 _recent: deque = deque()  # last-N mirror for the black box (never drained)
@@ -56,7 +51,9 @@ _dump_lock = threading.Lock()
 
 
 def _cfg():
-    return _DEFAULTS
+    from ..core.config import get_config
+
+    return get_config()
 
 
 def _ring_cap() -> int:
@@ -136,6 +133,10 @@ def flush_steps(client=None) -> int:
     returns the records flushed.  With no client, or a closed one, the
     records stay in the bounded ring and this returns 0."""
     dump_black_box()
+    if client is None:
+        from ..core.context import ctx as rt_ctx
+
+        client = rt_ctx.client
     if client is None or getattr(client, "rpc", None) is None \
             or getattr(client.rpc, "closed", False):
         return 0

@@ -12,16 +12,16 @@ read), ``trace_analysis`` turns a trace's spans into a tree, a critical path
 and a stage breakdown, and ``chrome_trace`` renders span events for
 chrome://tracing.
 
-The port has no runtime yet, so there is no head and no client:
-``flush_spans()`` behaves as the JAX one does when ``ctx.client is None``
-(it returns 0 and the spans stay in the ring), and given a client it ships
-the ring as one ``span_batch`` through its ``call_batched``.  The defaults
-of ``ray_tpu/core/config.py`` (``span_ring_size`` 4096,
-``trace_sample_rate`` 1.0) stay here behind ``_cfg()``, which tests may
-replace.  ``task_span`` belongs to the runtime and waits for it.  Span ids
-come from this module's own copy of the JAX package's fork-keyed PRNG
-(``_rand_bytes``).  This module imports nothing of JAX and nothing of
-``ray_tpu``.
+``flush_spans()`` ships the ring as one ``span_batch`` through the runtime
+client's ``call_batched`` (``ctx.client``, flushed on the client's report
+cadence); the head keeps the spans for ``list_state(kind="traces")``.  With
+no client (no runtime, or headless) the spans stay in the ring.  A task
+submitted inside a traced region carries the context in its spec, and the
+worker records the task's execution span (``task_span``).  The ring size and
+the sample rate come from the runtime's config through ``_cfg()``, which
+tests may replace; a client's head-configured rate wins.  Span ids come from
+the runtime's fork-keyed PRNG (``core/ids._rand_bytes``).  This module
+imports nothing of JAX and nothing of ``ray_tpu``.
 
 Usage::
 
@@ -35,18 +35,18 @@ import contextlib
 import contextvars
 import logging
 import os
-import random
 import threading
 import time
-import types
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-_DEFAULTS = types.SimpleNamespace(span_ring_size=4096, trace_sample_rate=1.0)
+from ..core.ids import _rand_bytes
 
 
 def _cfg():
-    return _DEFAULTS
+    from ..core.config import get_config
+
+    return get_config()
 
 
 _current: contextvars.ContextVar[Optional[Dict[str, Any]]] = (
@@ -54,25 +54,6 @@ _current: contextvars.ContextVar[Optional[Dict[str, Any]]] = (
 )
 
 logger = logging.getLogger("ray_tpu_torch.tracing")
-
-_rng: Optional[random.Random] = None
-_rng_pid = 0
-_rng_lock = threading.Lock()
-
-
-def _rand_bytes(n: int) -> bytes:
-    """``n`` random bytes from a process PRNG seeded from ``os.urandom``, the
-    pid and the clock, and seeded again in a forked child (``os.urandom`` is
-    a syscall per call, and ids are minted on hot paths)."""
-    global _rng, _rng_pid
-    with _rng_lock:
-        pid = os.getpid()
-        if _rng is None or _rng_pid != pid:
-            _rng = random.Random(
-                os.urandom(16) + pid.to_bytes(8, "little")
-                + time.time_ns().to_bytes(16, "little"))
-            _rng_pid = pid
-        return _rng.getrandbits(8 * n).to_bytes(n, "little")
 
 
 def new_id() -> str:
@@ -84,10 +65,20 @@ def new_id() -> str:
 
 
 def _sample_rate() -> float:
-    try:
-        return float(_cfg().trace_sample_rate)
-    except Exception:
-        return 1.0
+    """Head-configured root sampling rate: the register reply carries the
+    head's ``trace_sample_rate`` (one knob governs the cluster); processes
+    without a client fall back to their local config."""
+    from ..core.context import ctx as rt_ctx
+
+    client = rt_ctx.client
+    rate = getattr(client, "trace_sample_rate", None) \
+        if client is not None else None
+    if rate is None:
+        try:
+            rate = _cfg().trace_sample_rate
+        except Exception:
+            rate = 1.0
+    return float(rate)
 
 
 def should_sample(force: bool = False) -> bool:
@@ -172,6 +163,10 @@ def flush_spans(client=None) -> int:
     ``call_batched``; returns the spans flushed.  With no client, or a
     client whose connection is closed, this is a no-op returning 0: the
     spans stay in the bounded ring."""
+    if client is None:
+        from ..core.context import ctx as rt_ctx
+
+        client = rt_ctx.client
     if client is None or getattr(client, "rpc", None) is None \
             or getattr(client.rpc, "closed", False):
         return 0
@@ -309,6 +304,26 @@ def trace_if_active(name: str, **attrs):
     if context_for_submit() is None:
         return contextlib.nullcontext({})
     return trace(name, **attrs)
+
+
+def task_span(spec: Dict[str, Any], start: float, end: float,
+              **attrs) -> Optional[dict]:
+    """Build the execution span for a finished task from its spec's injected
+    context (None when the submission wasn't traced and tracing isn't
+    forced)."""
+    injected = spec.get("trace_ctx")
+    if injected is None:
+        return None
+    return {
+        "trace_id": injected["trace_id"],
+        "span_id": injected.get("task_span_id") or new_id(),
+        "parent_id": injected.get("span_id"),
+        "name": f"task:{spec.get('name', 'anonymous')}",
+        "start": start,
+        "end": end,
+        "pid": os.getpid(),
+        **({"attrs": attrs} if attrs else {}),
+    }
 
 
 def chrome_trace(events) -> list:
