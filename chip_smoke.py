@@ -100,25 +100,56 @@ no result line):
    granted workers; in a container whose ``nvidia-smi`` reports pids of
    another namespace that is a count only, since those pids cannot be
    told apart (the ungranted probe is what proves isolation).
-12. train: the serving model is freed; ``make_train_step(llama_loss)``
+12. serve front: the port's serving front on the card, with its own
+   ``rt.init(num_cpus=4)`` (the GPU count from NVML).  (a) The b1 app
+   through ``serve.run(serve.llm_app(model="b1", engine=dict(
+   batch_slots=8, page_size=16, max_prompt_len=512), adapters={"a1": 1,
+   "a2": 2}))``: one replica granted the card builds b1 at its full
+   widths (d_model 2048, 20 layers, 16 heads of 128, d_ff 5632, vocab
+   32000, bf16, 1.16 B parameters) from the seed; its fp64 weight
+   checksums must equal the driver's.  The serving cell's 12 prompts (8,
+   then 4 while those decode, 32 greedy tokens each), half through
+   ``handle.options(stream=True)`` and half as HTTP SSE from
+   ``start_http()``, one by ``multiplexed_model_id`` and one by
+   ``adapter=``, one cancelled after 4 tokens; then an adapter put in the
+   object store and registered by its ``ObjectRef``, whose tokens must
+   equal the same adapter registered directly; then the mix again on
+   fresh prompts (a warm pass).  Every stream's tokens must equal an
+   in-process engine's from the same seed, served one at a time, and the
+   replica's pages must balance (free plus cached, none shared).  (b)
+   With the b1 app deleted, a ``serve.deployment`` with
+   ``ray_actor_options={"num_gpus": 1}`` builds Llama-3-8B from
+   ``phase_forward``'s seed and the serve phase's ``EngineConfig``; the
+   serving mix, greedy, through the streaming handle, twice: the tokens
+   must equal the runtime phase's in-process engine's and the serve
+   phase's greedy requests'; then the same mix inside the replica with
+   no front.  Each request is traced (a forced root at the handle,
+   ``X-RT-Force-Trace`` over SSE), so its engine TTFT and inter-token gap
+   come from its ``engine:decode`` span at the head; printed beside the
+   client's TTFT (submission to the first item) and gap, their
+   difference (the front's added latency, per request and per token),
+   tokens/s at the client and each replica's start time, with the card's
+   name and power limit.  gRPC is not driven on the card (the CPU tests
+   hold it against the JAX package).
+13. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind).
-13. remat: on the same model and optimizer state, ``full`` (the others'
+14. remat: on the same model and optimizer state, ``full`` (the others'
    reference in this phase), then each of ``save_attn``, ``save_dots``,
    ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
    policy that would not fit runs last on a fresh model at the deepest
    depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
    memory, allocator retries, SM clock) and one step under the profiler
    (idle share, time by kernel kind).
-14. train check: a 2-layer full-width model's loss and every gradient in
+15. train check: a 2-layer full-width model's loss and every gradient in
    bf16 (K4's backward included) against the same weights in fp32 on the
    CPU through the plain path (B=1, S=256); then under each of the six
    remat policies a 2-layer model's loss and gradients at S=2048 against
    ``full``'s on the card (bit-identical, or within 2^-8).
-15. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+16. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
    6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
    ``moe_apply`` forward, 2 warm and 5 timed
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
@@ -128,9 +159,9 @@ no result line):
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
-16. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+17. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
-17. rllib: the learners, models and in-process env runners of
+18. rllib: the learners, models and in-process env runners of
    ``ray_tpu_torch.rllib`` on the card in fp32, none given a device.  (a)
    The main path: PPO on CartPole at ``PPOConfig``'s defaults (two
    ``EnvRunner``s of 8 envs x 64 steps, GAE, ``update_from_batch`` of 10
@@ -151,7 +182,7 @@ no result line):
    relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
    Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
    ``mesh=`` dp 2 against the one-process update.
-18. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+19. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -181,7 +212,12 @@ remat policy's, the moe and the rllib paths run and read just after (the
 rllib path launches none of the csrc kernels).  On the runtime path the
 GPU task and the engine actor zero their own process's counters just
 before their main path and return them after it: the task must launch K1
-once and K4 twice, the actor K1 and K4's forward.  K1 and K4's
+once and K4 twice, the actor K1 and K4's forward.  On the serve-front
+path each replica reads its own process's counts through a method of
+its deployment (``stats()["kernel_launches"]``) just before the main
+path and just after it (the b1 replica is fresh, its counts 0); the
+replicas together must launch K1 and K4's forward, and never K2, K3 or
+K4's backward.  K1 and K4's
 forward must have launched on the tiny serve, forward, serve and observe
 paths (K4's backward never), on the multitenant path K1 once a layer per
 prefill and K4's forward once a norm per program call.  Per layer and step a train step
@@ -610,6 +646,12 @@ def _flash_cases(torch):
     for Sq, off in ((16, 48), (64, 20), (128, 100)):
         cases.append(dict(B=1, H=4, Hkv=2, Sq=Sq, Sk=144, D=32, causal=True,
                           off=off, dt=torch.float32))
+    # b1's paged prefill (``llm_app(model="b1")``, the serve-front phase):
+    # 16 heads in groups of 1, head_dim 128, bf16, each prefill bucket up
+    # to 512, as the model's [S, H, D] views.
+    for S in (16, 32, 64, 128, 256, 512):
+        cases.append(dict(B=1, H=16, Hkv=16, Sq=S, Sk=S, D=128, causal=True,
+                          off=0, dt=torch.bfloat16, bshd=True))
     return cases
 
 
@@ -1245,6 +1287,7 @@ def phase_serve(torch, report, cfg, params, seed: int):
           f"backward never): {counts}")
     ttfts = sorted(r[1] for r in results)
     total = sum(len(r[0]) for r in results)
+    itls = sorted(sum(r[2]._req.itls) / len(r[2]._req.itls) for r in results)
     ref = generate(cfg, params, prompts[check_idx][None],
                    max_new_tokens=new)[0, -new:].cpu().tolist()
     got = results[check_idx][0]
@@ -1254,7 +1297,8 @@ def phase_serve(torch, report, cfg, params, seed: int):
     print(f"[serve] 12 requests x {new} tokens on Llama-3-8B: wall "
           f"{wall:.2f} s, {total / wall:.1f} tokens/s, TTFT p50 "
           f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms max {ttfts[-1] * 1e3:.1f} "
-          f"ms, {stats['steps']} decode steps, active when late requests "
+          f"ms, inter-token p50 {itls[len(itls) // 2] * 1e3:.1f} ms, "
+          f"{stats['steps']} decode steps, active when late requests "
           f"arrived {active_at_late}; launches {counts}")
     print(f"[serve] greedy request ({len(prompts[check_idx])}-token prompt) "
           f"vs generate: first token {got[0]} vs {ref[0]}, {agree}/{new} "
@@ -1265,8 +1309,12 @@ def phase_serve(torch, report, cfg, params, seed: int):
         "wall_s": wall, "tokens": total, "tokens_per_s": total / wall,
         "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
         "ttft_max_ms": ttfts[-1] * 1e3, "steps": stats["steps"],
+        # The engine's mean inter-token gap of each request, p50.
+        "itl_p50_ms": itls[len(itls) // 2] * 1e3,
         "launches": counts, "greedy_agree": agree,
-        "greedy_prefix": prefix}
+        "greedy_prefix": prefix,
+        # Each request's tokens and temperature, for the serve-front phase.
+        "tokens": [r[0] for r in results], "temperatures": temps}
 
 
 def phase_serve_profile(torch, report, cfg, params, seed: int):
@@ -1987,6 +2035,8 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
     out["serve"] = {
         "requests": len(prompts), "new_tokens": new,
         "tokens_equal": all(match),
+        # The in-process greedy tokens, for the serve-front phase.
+        "tokens": [r["tokens"] for r in local],
         "ttft_p50_ms": {name: {"in_process": _rt_ttft(a),
                                "in_actor": _rt_ttft(b)}
                         for name, (a, b) in passes.items()},
@@ -2102,6 +2152,611 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
               f"granted actor")
     counts = {k: task_counts[k] + actor_counts[k] for k in task_counts}
     out["launches"] = counts
+
+
+# ------------------------------------------------------------ serve front
+#
+# The serve-front phase drives the port's serving front (``serve.run``, the
+# controller and its replica actors, handles and the HTTP ingress) with the
+# engine in the replicas' own processes.  Each replica's launch counts are
+# read in that process, through a method of its deployment.
+
+#: The serve-front phase's 12 requests in submit order (the serving cell's
+#: mix: 8, then 4 while those decode): each one's entry point, its adapter
+#: ("mux": the handle's ``multiplexed_model_id``; "adapter": ``adapter=``
+#: in the SSE body), and the one cancelled mid-stream.
+_FRONT_JOBS = (
+    {"via": "handle"}, {"via": "sse"},
+    {"via": "handle", "mux": "a1"}, {"via": "sse", "adapter": "a2"},
+    {"via": "handle", "cancel": True}, {"via": "sse"},
+    {"via": "handle"}, {"via": "sse"},
+    {"via": "handle"}, {"via": "sse"}, {"via": "handle"}, {"via": "sse"})
+#: The cancelled request stops reading after this many tokens.
+_FRONT_CANCEL_AT = 4
+
+
+class _Front8B:
+    """The serve-front phase's Llama-3-8B deployment: an ``InferenceEngine``
+    over ``llama_init`` weights from a ``torch.Generator`` seeded with
+    ``seed`` (``phase_forward``'s), built in the replica's process on the
+    card it was granted; tokens stream one item each, and a consumer that
+    goes away cancels the request.  ``model="tiny"`` with ``device="cpu"``
+    is the CPU rehearsal's."""
+
+    def __init__(self, seed: int, ecfg: dict, model: str = "llama3_8b",
+                 device=None):
+        import torch
+
+        from ray_tpu_torch import resolve_device
+        from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        t = time.perf_counter()
+        dev = resolve_device(device)
+        cfg = (LlamaConfig.llama3_8b() if model == "llama3_8b"
+               else LlamaConfig.tiny(dtype=torch.float32))
+        self.params = llama_init(
+            cfg, torch.Generator(device=dev.type).manual_seed(seed), dev)
+        self.engine = InferenceEngine(cfg, self.params, EngineConfig(**ecfg),
+                                      seed=seed, device=dev)
+        self.init_s = time.perf_counter() - t
+
+    def __call__(self, prompt_tokens, max_new_tokens: int = 16):
+        stream = self.engine.submit(prompt_tokens,
+                                    max_new_tokens=max_new_tokens)
+        try:
+            yield from stream
+        finally:
+            stream.cancel()
+
+    def stats(self):
+        return dict(self.engine.stats(), kernel_launches=_read_counts(),
+                    init_s=self.init_s,
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    def reset_counts(self):
+        _reset_counts()
+
+    def local_mix(self, prompts, n_first: int, new: int):
+        """The same mix served in this process with no front: each stream
+        consumed by a thread here (``_serve_mix``), greedy."""
+        results, wall, _ = _serve_mix(self.engine, prompts,
+                                      [0.0] * len(prompts), n_first, new)
+        itls = sorted(sum(r[2]._req.itls) / len(r[2]._req.itls)
+                      for r in results)
+        ttfts = sorted(r[1] for r in results)
+        tokens = sum(len(r[0]) for r in results)
+        return {"tokens": [r[0] for r in results], "wall_s": wall,
+                "tokens_per_s": tokens / wall,
+                "itl_p50_ms": _rt_p50(itls) * 1e3,
+                "ttft_p50_ms": _rt_p50(ttfts) * 1e3,
+                "ttft_max_ms": ttfts[-1] * 1e3}
+
+
+def _front_prompts(cfg, seed: int, cap: int):
+    """The serving cell's 12 prompts (``_serve_mix_prompts``) as lists, cut
+    to ``cap / 512`` of their length for a smaller prompt cap (the CPU
+    rehearsal's tiny model); and how many come first."""
+    prompts, _, n_first = _serve_mix_prompts(cfg, seed)
+    return [[int(t) for t in p[:max(4, len(p) * cap // 512)]]
+            for p in prompts], n_first
+
+
+def _front_handle(handle, prompt, new: int, cancel: bool, rec: dict):
+    """One request streamed through ``handle`` under a forced trace root
+    (so the replica's engine spans carry its trace id)."""
+    from ray_tpu_torch.util import tracing
+
+    with tracing.trace("serve-front", force=True) as root:
+        rec["t0"], rec["t0_wall"] = time.perf_counter(), time.time()
+        stream = handle.remote(prompt, new)
+    rec["trace_id"] = root["trace_id"]
+    for tok in stream:
+        rec["stamps"].append(time.perf_counter())
+        rec.setdefault("first_wall", time.time())
+        rec["tokens"].append(int(tok))
+        if cancel and len(rec["tokens"]) == _FRONT_CANCEL_AT:
+            stream.cancel()
+            break
+
+
+def _front_sse(port: int, app: str, body: dict, rec: dict):
+    """One request as HTTP server-sent events, traced by the ingress
+    (``X-RT-Force-Trace``): one ``data:`` frame a token, then ``event:
+    done``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        rec["t0"], rec["t0_wall"] = time.perf_counter(), time.time()
+        conn.request("POST", f"/{app}", body=json.dumps(body), headers={
+            "Content-Type": "application/json",
+            "Accept": "text/event-stream", "X-RT-Force-Trace": "1"})
+        resp = conn.getresponse()
+        check(resp.status == 200
+              and resp.getheader("Content-Type") == "text/event-stream",
+              f"SSE answered {resp.status} {resp.getheader('Content-Type')}")
+        rec["trace_id"] = resp.getheader("X-RT-Trace-Id")
+        event, done = None, False
+        while not done:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.rstrip(b"\r\n")
+            if line.startswith(b"event: "):
+                event = line[7:].decode()
+            elif line.startswith(b"data: "):
+                check(event in (None, "done"),
+                      f"SSE {event} frame: {line[6:].decode()}")
+                if event is None:
+                    rec["stamps"].append(time.perf_counter())
+                    rec.setdefault("first_wall", time.time())
+                    rec["tokens"].append(int(json.loads(line[6:])))
+                done = event == "done"
+            elif not line:
+                event = None
+        check(done, "the SSE stream ended without its done event")
+    finally:
+        conn.close()
+
+
+def _front_mix(n_jobs: int, n_first: int, submit):
+    """``submit(i, rec)`` for each request on its own thread: ``n_first``
+    at once, the rest once each of those has streamed a token.  Returns
+    the records (``tokens``, ``stamps``, ``t0``, ``trace_id``) and the
+    wall seconds."""
+    recs = [{"tokens": [], "stamps": []} for _ in range(n_jobs)]
+    errors = []
+
+    def run(i):
+        try:
+            submit(i, recs[i])
+        except Exception as e:  # noqa: BLE001: reported below
+            errors.append((i, repr(e)))
+
+    threads = []
+
+    def start(i):
+        threads.append(threading.Thread(target=run, args=(i,), daemon=True))
+        threads[-1].start()
+
+    t0 = time.perf_counter()
+    for i in range(n_first):
+        start(i)
+    deadline = time.time() + 600
+    while (any(not recs[i]["stamps"] for i in range(n_first)) and not errors
+           and time.time() < deadline):
+        time.sleep(0.005)
+    for i in range(n_first, n_jobs):
+        start(i)
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "a stream did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    check(not errors, f"stream errors: {errors}")
+    return recs, wall
+
+
+def _front_spans(rt, trace_ids, timeout: float = 60.0):
+    """{trace id: {span name: span}} at the head, once every request's
+    ``engine:decode`` span is there: its attrs hold the engine's own TTFT
+    and mean inter-token latency; the ``engine:queue`` span starts at the
+    engine's ``submit`` and ``engine:prefill`` ends at its first token
+    (``time.time()`` on the same host as the client's clock)."""
+    want, got = set(trace_ids), {}
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = {}
+        for ev in _rt_state(rt, "timeline"):
+            if ev.get("kind") == "span" and ev.get("trace_id") in want:
+                got.setdefault(ev["trace_id"], {})[ev["name"]] = ev
+        if sum("engine:decode" in v for v in got.values()) == len(want):
+            break
+        time.sleep(0.5)
+    n = sum("engine:decode" in v for v in got.values())
+    check(n == len(want), f"engine spans of {n} of {len(want)} requests "
+                          f"reached the head")
+    return got
+
+
+def _front_timing(recs, jobs, spans, n_first: int, wall: float):
+    """TTFT at the client (submission to the first item) and in the
+    engine (its decode span's ``ttft_s``), the front's added latency (the
+    difference, per request) and per token (client mean inter-token gap
+    minus the engine's, over the requests that ran to the end), and
+    tokens/s at the client; in ms."""
+    per = []
+    for i, (r, job) in enumerate(zip(recs, jobs)):
+        sp = spans[r["trace_id"]]
+        a = sp["engine:decode"]["attrs"]
+        rec = {"via": job["via"], "late": i >= n_first,
+               "client_ttft_ms": (r["stamps"][0] - r["t0"]) * 1e3,
+               "engine_ttft_ms": a["ttft_s"] * 1e3}
+        rec["added_ms"] = rec["client_ttft_ms"] - rec["engine_ttft_ms"]
+        # Where the added time lies: from the client's submission to the
+        # engine's submit (routing, dispatch, a replica lane), and from
+        # the engine's first token to the client's first item (delivery).
+        rec["dispatch_ms"] = (sp["engine:queue"]["start"]
+                              - r["t0_wall"]) * 1e3
+        rec["delivery_ms"] = (r["first_wall"]
+                              - sp["engine:prefill"]["end"]) * 1e3
+        # The dispatch by stage, from the handle's and the replica's spans:
+        # the routing table (before the handle's span), the task's way to
+        # a replica lane, and the replica's own code up to the engine.
+        hs = next((v for k, v in sp.items() if k.startswith("handle:")),
+                  None)
+        rs = next((v for k, v in sp.items() if k.startswith("replica:")),
+                  None)
+        if hs is not None and rs is not None:
+            rec["route_ms"] = (hs["start"] - r["t0_wall"]) * 1e3
+            rec["to_replica_ms"] = (rs["start"] - hs["start"]) * 1e3
+            rec["in_replica_ms"] = (sp["engine:queue"]["start"]
+                                    - rs["start"]) * 1e3
+        if not job.get("cancel") and len(r["stamps"]) > 1:
+            rec["client_itl_ms"] = ((r["stamps"][-1] - r["stamps"][0])
+                                    / (len(r["stamps"]) - 1) * 1e3)
+            rec["engine_itl_ms"] = a["mean_itl_s"] * 1e3
+            rec["added_per_token_ms"] = (rec["client_itl_ms"]
+                                         - rec["engine_itl_ms"])
+        per.append(rec)
+
+    def p50(rows, key):
+        xs = [r[key] for r in rows if key in r]
+        return _rt_p50(xs) if xs else None
+
+    groups = {"all": per,
+              "handle": [r for r in per if r["via"] == "handle"],
+              "sse": [r for r in per if r["via"] == "sse"],
+              "first": [r for r in per if not r["late"]],
+              "late": [r for r in per if r["late"]]}
+    tokens = sum(len(r["tokens"]) for r in recs)
+    return {
+        "requests": per,
+        "client_ttft_ms": {"p50": p50(per, "client_ttft_ms"),
+                           "max": max(r["client_ttft_ms"] for r in per)},
+        "engine_ttft_ms": {"p50": p50(per, "engine_ttft_ms"),
+                           "max": max(r["engine_ttft_ms"] for r in per)},
+        "client_itl_ms_p50": p50(per, "client_itl_ms"),
+        "engine_itl_ms_p50": p50(per, "engine_itl_ms"),
+        "added_ms_p50": {k: p50(v, "added_ms") for k, v in groups.items()},
+        "dispatch_ms_p50": {k: p50(v, "dispatch_ms")
+                            for k, v in groups.items()},
+        "delivery_ms_p50": {k: p50(v, "delivery_ms")
+                            for k, v in groups.items()},
+        # Over the first wave (a late request's lane wait is its own).
+        "dispatch_stages_ms_p50": {
+            k: p50(groups["first"], k) for k in ("route_ms", "to_replica_ms",
+                                                 "in_replica_ms")},
+        "added_per_token_ms_p50": {k: p50(v, "added_per_token_ms")
+                                   for k, v in groups.items()},
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall}
+
+
+def _front_line(name: str, t: dict, card: str) -> str:
+    f = lambda x: "n/a" if x is None else f"{x:.2f}"  # noqa: E731
+    return (f"[serve-front] {name}: {len(t['requests'])} requests, "
+            f"{t['tokens']} tokens in {t['wall_s']:.2f} s "
+            f"({t['tokens_per_s']:.1f} tokens/s at the client); TTFT p50 / "
+            f"max at the client {f(t['client_ttft_ms']['p50'])} / "
+            f"{f(t['client_ttft_ms']['max'])} ms, in the engine "
+            f"{f(t['engine_ttft_ms']['p50'])} / "
+            f"{f(t['engine_ttft_ms']['max'])} ms; inter-token p50 at the "
+            f"client {f(t['client_itl_ms_p50'])} ms, in the engine "
+            f"{f(t['engine_itl_ms_p50'])} ms; the front's added latency "
+            f"p50 per request (ms) "
+            + ", ".join(f"{k} {f(v)}" for k, v in t["added_ms_p50"].items())
+            + "; of that, p50 dispatch (ms) "
+            + ", ".join(f"{k} {f(v)}" for k, v in t["dispatch_ms_p50"].items())
+            + "; dispatch by stage, first wave (ms) "
+            + ", ".join(f"{k[:-3]} {f(v)}"
+                        for k, v in t["dispatch_stages_ms_p50"].items())
+            + "; delivery (ms) "
+            + ", ".join(f"{k} {f(v)}" for k, v in t["delivery_ms_p50"].items())
+            + "; per token (ms) "
+            + ", ".join(f"{k} {f(v)}"
+                        for k, v in t["added_per_token_ms_p50"].items())
+            + f"; {card}")
+
+
+def _front_balanced(unary, timeout: float = 30.0):
+    """Poll the replica's ``stats`` until no sequence is active and every
+    page is free or held by the prefix cache alone; returns the stats."""
+    deadline = time.time() + timeout
+    while True:
+        st = unary("stats")
+        cached = (st["prefix_cache"] or {}).get("pages", 0)
+        if (st["active_seqs"] == 0 and st["shared_pages"] == 0
+                and st["free_pages"] + cached == st["total_pages"]):
+            return st
+        check(time.time() < deadline,
+              f"the replica's pages are not balanced: {st['free_pages']} "
+              f"free + {cached} cached of {st['total_pages']}, "
+              f"{st['active_seqs']} active, {st['shared_pages']} shared")
+        time.sleep(0.1)
+
+
+def _front_b1(torch, rt, serve, seed: int, dev, card: str):
+    """(a): the b1 app through ``llm_app``; see ``phase_serve_front``."""
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.serve.engine import (_MODEL_BUILDERS, EngineConfig,
+                                            InferenceEngine, random_lora)
+
+    cpu = dev == "cpu"
+    model = "tiny" if cpu else "b1"
+    cfg = _MODEL_BUILDERS[model]()
+    cap = 128 if cpu else 512
+    ecfg = dict(batch_slots=8, page_size=16, max_prompt_len=cap)
+    rank = EngineConfig(**ecfg).lora_rank
+    new = 32
+    t = time.perf_counter()
+    handle = serve.run(serve.llm_app(
+        model=model, engine=ecfg, adapters={"a1": 1, "a2": 2}, device=dev),
+        timeout=600)
+    out = {"model": model, "start_s": time.perf_counter() - t}
+    port = serve.start_http()
+
+    def unary(method, *args):
+        return handle.options(method_name=method).remote(*args).result(
+            timeout=600)
+
+    # The weights the replica built from the seed, against the driver's.
+    params = llama_init(cfg, torch.Generator(device="cpu" if cpu else "cuda")
+                        .manual_seed(seed), dev)
+    sums = _rt_checksums(params)
+    got_sums = unary("weight_checksums")
+    diff = [n for n in sums if got_sums.get(n) != sums[n]]
+    check(set(got_sums) == set(sums) and not diff,
+          f"the replica's {model} weights differ from the driver's: "
+          f"{diff[:5]}")
+    n_params = sum(p.numel() for p in params.parameters())
+    # The cold pass (a fresh replica) and a warm one on fresh prompts (the
+    # prefix cache would serve the same prompts from their cached pages).
+    passes = {"cold": _front_prompts(cfg, seed, cap),
+              "warm": _front_prompts(cfg, seed + 1, cap)}
+    streams = {None: handle.options(stream=True),
+               "a1": handle.options(stream=True, multiplexed_model_id="a1")}
+
+    def submitter(prompts):
+        def submit(i, rec):
+            job = _FRONT_JOBS[i]
+            if job["via"] == "handle":
+                _front_handle(streams[job.get("mux")], prompts[i], new,
+                              job.get("cancel", False), rec)
+            else:
+                body = {"prompt_tokens": prompts[i], "max_new_tokens": new}
+                if job.get("adapter"):
+                    body["adapter"] = job["adapter"]
+                _front_sse(port, "llm", body, rec)
+        return submit
+
+    # -- the main path: the cold pass, an ObjectRef adapter, the warm pass
+    before = unary("stats")["kernel_launches"]
+    runs = {}
+    prompts, n_first = passes["cold"]
+    runs["cold"] = _front_mix(len(_FRONT_JOBS), n_first, submitter(prompts))
+    i_mux = next(i for i, j in enumerate(_FRONT_JOBS) if j.get("mux"))
+    ref = rt.put(random_lora(cfg, 1, rank=rank, device=dev))
+    unary("load_adapter", "a1_store", ref)
+    via_store = [int(t) for t in streams[None].remote(
+        prompts[i_mux], new, adapter="a1_store")]
+    st = _front_balanced(unary)
+    check(st["cancelled"] >= 1, f"no request was cancelled: {st}")
+    cold_recs = runs["cold"][0]
+    check(via_store == cold_recs[i_mux]["tokens"],
+          f"the adapter read from the object store streamed {via_store}, "
+          f"the same adapter registered directly "
+          f"{cold_recs[i_mux]['tokens']}")
+    prompts, n_first = passes["warm"]
+    runs["warm"] = _front_mix(len(_FRONT_JOBS), n_first, submitter(prompts))
+    st = _front_balanced(unary)
+    out["launches"] = {k: v - before[k]
+                       for k, v in st["kernel_launches"].items()}
+
+    # -- the in-process engine: the same requests one at a time ----------
+    engine = InferenceEngine(cfg, params, EngineConfig(**ecfg), seed=seed,
+                             device=dev)
+    try:
+        for name, s in (("a1", 1), ("a2", 2)):
+            engine.register_adapter(name, random_lora(cfg, s, rank=rank,
+                                                      device=dev))
+        want = {name: [list(engine.submit(
+            p, max_new_tokens=new,
+            adapter=job.get("mux") or job.get("adapter")))
+            for p, job in zip(passes[name][0], _FRONT_JOBS)]
+            for name in passes}
+    finally:
+        engine.shutdown()
+    del engine, params
+    for name, (recs, wall) in runs.items():
+        for i, (r, w, job) in enumerate(zip(recs, want[name], _FRONT_JOBS)):
+            got = r["tokens"]
+            if job.get("cancel"):
+                check(len(got) == _FRONT_CANCEL_AT and got == w[:len(got)],
+                      f"{name} pass: the cancelled request {i} streamed "
+                      f"{got}, expected {_FRONT_CANCEL_AT} tokens of {w}")
+            else:
+                check(got == w, f"{name} pass: request {i} ({job}) "
+                                f"streamed {got}, the in-process engine "
+                                f"{w}")
+        spans = _front_spans(rt, [r["trace_id"] for r in recs])
+        out[name] = _front_timing(recs, _FRONT_JOBS, spans,
+                                  passes[name][1], wall)
+    out.update(params=n_params,
+               prompt_lens=[len(p) for p in passes["cold"][0]],
+               new_tokens=new, tokens_equal=True, store_adapter_equal=True,
+               pages_balanced=True, cancelled=st["cancelled"],
+               prefix_cache_pages=(st["prefix_cache"] or {}).get("pages"))
+    print(f"[serve-front] b1 app (llm_app(model={model!r}), "
+          f"{n_params / 1e9:.3f} B parameters, one replica granted "
+          f"{'no card' if cpu else 'the card'}) ready in "
+          f"{out['start_s']:.1f} s (serve.run: worker start, torch import, "
+          f"CUDA start and weights); weights equal to the driver's by "
+          f"{len(sums)} fp64 checksums; in each of two passes 6 requests "
+          f"through the handle and 6 as SSE (one by multiplexed_model_id, "
+          f"one by adapter=, one cancelled after {_FRONT_CANCEL_AT} "
+          f"tokens) equal token for token to an in-process engine's; the "
+          f"adapter from the object store streamed the same tokens as the "
+          f"one registered directly; pages balanced after the cancels "
+          f"({st['free_pages']} free + {out['prefix_cache_pages']} cached "
+          f"of {st['total_pages']}); launches in the replica "
+          f"{out['launches']}", flush=True)
+    for name in runs:
+        print(_front_line(f"b1 app, {name} pass", out[name], card),
+              flush=True)
+    serve.delete("llm")
+    return out
+
+
+def _front_8b(torch, rt, serve, seed: int, dev, card: str, ref, serve_ref):
+    """(b): Llama-3-8B through ``serve.deployment``; see
+    ``phase_serve_front``."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cpu = dev == "cpu"
+    model = "tiny" if cpu else "llama3_8b"
+    cfg = (LlamaConfig.tiny(dtype=torch.float32) if cpu
+           else LlamaConfig.llama3_8b())
+    cap = 128 if cpu else 512
+    # phase_serve's engine.
+    ecfg = dict(batch_slots=8, page_size=16, max_prompt_len=cap,
+                max_new_tokens_cap=64, prefix_cache=False)
+    new = 32
+    dep = serve.deployment(
+        name="llm8b",
+        ray_actor_options=None if cpu else {"num_gpus": 1})(_Front8B)
+    t = time.perf_counter()
+    handle = serve.run(dep.bind(seed, ecfg, model, dev), name="llm8b",
+                       timeout=600)
+    out = {"model": model, "start_s": time.perf_counter() - t}
+
+    def unary(method, *args):
+        return handle.options(method_name=method).remote(*args).result(
+            timeout=600)
+
+    info = unary("stats")
+    out.update(init_s=info["init_s"], visible=info["visible"])
+    check(cpu or info["visible"] == "0",
+          f"the 8B replica saw CUDA_VISIBLE_DEVICES={info['visible']!r}")
+    prompts, n_first = _front_prompts(cfg, seed, cap)
+    stream = handle.options(stream=True)
+    jobs = [{"via": "handle"}] * len(prompts)
+    unary("reset_counts")
+    runs = {name: _front_mix(
+        len(prompts), n_first,
+        lambda i, rec: _front_handle(stream, prompts[i], new, False, rec))
+        for name in ("cold", "warm")}
+    out["launches"] = unary("stats")["kernel_launches"]
+    # The same mix in the replica's process with no front (not the main
+    # path: its launches are not counted): the engine's own pace there.
+    local = unary("local_mix", prompts, n_first, new)
+    st = _front_balanced(unary)
+    bad = [i for i, (g, w) in enumerate(zip(local.pop("tokens"), ref))
+           if g != w]
+    check(not bad, f"the mix served inside the 8B replica differs from "
+                   f"the in-process engine's on requests {bad}")
+    out["in_replica"] = local
+    greedy = []
+    if serve_ref is not None:
+        toks, temps = serve_ref
+        greedy = [i for i, tp in enumerate(temps) if tp == 0.0]
+    for name, (recs, wall) in runs.items():
+        got = [r["tokens"] for r in recs]
+        bad = [i for i, (g, w) in enumerate(zip(got, ref)) if g != w]
+        check(not bad, f"{name} pass: the 8B deployment's greedy tokens "
+                       f"differ from the in-process engine's on requests "
+                       f"{bad}")
+        bad = [i for i in greedy if got[i] != toks[i]]
+        check(not bad, f"{name} pass: the 8B deployment's tokens differ "
+                       f"from phase_serve's on its greedy requests {bad}")
+        spans = _front_spans(rt, [r["trace_id"] for r in recs])
+        out[name] = _front_timing(recs, jobs, spans, n_first, wall)
+    out.update(tokens_equal=True, serve_greedy_equal=len(greedy),
+               free_pages=st["free_pages"], total_pages=st["total_pages"])
+    print(f"[serve-front] 8B deployment ({model}, serve.deployment with "
+          f"ray_actor_options={None if cpu else {'num_gpus': 1}}, "
+          f"CUDA_VISIBLE_DEVICES={info['visible']!r}) ready in "
+          f"{out['start_s']:.1f} s (its weights and engine "
+          f"{out['init_s']:.1f} s of that); in each of two passes 12 greedy "
+          f"requests streamed through the handle equal token for token to "
+          f"the in-process engine's one at a time"
+          + (f" and to phase_serve's {len(greedy)} greedy requests"
+             if greedy else "")
+          + f"; launches in the replica {out['launches']}", flush=True)
+    for name in runs:
+        print(_front_line(f"8B deployment, {name} pass", out[name], card),
+              flush=True)
+    print(f"[serve-front] the same mix inside the 8B replica with no front: "
+          f"{local['tokens_per_s']:.1f} tokens/s, the engine's inter-token "
+          f"p50 {local['itl_p50_ms']:.2f} ms, TTFT p50 / max "
+          f"{local['ttft_p50_ms']:.1f} / {local['ttft_max_ms']:.1f} ms; "
+          f"{card}", flush=True)
+    serve.delete("llm8b")
+    return out
+
+
+def phase_serve_front(torch, report, seed: int, card: str, dev=None):
+    """The serving front on the card: (a) the b1 app through
+    ``serve.run(serve.llm_app(model="b1", ...))`` and (b) a Llama-3-8B
+    deployment through ``serve.deployment``, one GPU replica at a time;
+    see the module docstring's phase list.  ``dev="cpu"`` rehearses it on
+    the CPU with the tiny model in both (the reference tokens of (b) then
+    come from an in-process engine).  gRPC is not driven here: ``grpcio``
+    is not known to be installed on the card's machine, and the ingress
+    runs no device code; the CPU tests hold it against the JAX
+    package's."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    cpu = dev == "cpu"
+    out = {"card": card}
+    check(cpu or "RT_GPUS" not in os.environ,
+          "the GPU count must come from autodetection, not RT_GPUS")
+    rt.init(num_cpus=4)
+    try:
+        res = rt.cluster_resources()
+        out["resources"] = res
+        check(cpu or res.get("GPU") == 1.0,
+              f"autodetected GPU resource {res.get('GPU')}, expected 1")
+        out["b1"] = _front_b1(torch, rt, serve, seed, dev, card)
+        if cpu:
+            ref, serve_ref = _front_ref_cpu(torch, seed), None
+        else:
+            ref = report["runtime"]["serve"]["tokens"]
+            serve_ref = (report["serve"]["tokens"],
+                         report["serve"]["temperatures"])
+        out["8b"] = _front_8b(torch, rt, serve, seed, dev, card, ref,
+                              serve_ref)
+    finally:
+        serve.stop_http()
+        serve.shutdown()
+        rt.shutdown()
+    out["launches"] = {k: out["b1"]["launches"][k] + out["8b"]["launches"][k]
+                       for k in out["b1"]["launches"]}
+    c = out["launches"]
+    check(cpu or (c["flash_fwd"] > 0 and c["rms_norm"] > 0
+                  and c["flash_bwd_dq"] == c["flash_bwd_dkv"] == 0
+                  and c["rms_norm_bwd"] == 0),
+          f"the replicas did not launch K1 and K4's forward (and K2, K3 and "
+          f"K4's backward never): {c}")
+    report["serve_front"] = out
+
+
+def _front_ref_cpu(torch, seed: int):
+    """The CPU rehearsal's reference for (b): the tiny model's greedy
+    tokens from an in-process engine, one request at a time."""
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = llama_init(cfg, torch.Generator().manual_seed(seed), "cpu")
+    engine = InferenceEngine(cfg, params, EngineConfig(
+        batch_slots=8, page_size=16, max_prompt_len=128,
+        max_new_tokens_cap=64, prefix_cache=False), seed=seed, device="cpu")
+    try:
+        prompts, _ = _front_prompts(cfg, seed, 128)
+        return [r["tokens"] for r in _rt_serve(engine, prompts, 32)]
+    finally:
+        engine.shutdown()
 
 
 def _serve_all(engine, jobs, new: int):
@@ -4382,6 +5037,7 @@ def main(argv=None) -> int:
     phase_observe(torch, report, cfg, params, args.seed)
     phase_multitenant(torch, report, cfg, params, args.seed)
     phase_runtime(torch, report, cfg, params, args.seed, card)
+    phase_serve_front(torch, report, args.seed, card)
     del params  # the serving model makes room for training
     gc.collect()
     torch.cuda.empty_cache()
@@ -4410,8 +5066,8 @@ def main(argv=None) -> int:
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
-                          "multitenant", "runtime", "train", "remat", "moe",
-                          "rllib")}
+                          "multitenant", "runtime", "serve_front", "train",
+                          "remat", "moe", "rllib")}
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

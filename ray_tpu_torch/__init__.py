@@ -13,7 +13,8 @@ The runtime core is the JAX package's, with GPU grants in place of TPU chip
 grants: ``init``, ``@remote`` tasks and actors (``num_gpus=n``), ``put``,
 ``get``, ``wait``, ``kill``, ``cancel`` and placement groups.  Importing the
 package loads neither torch nor CUDA (the worker zygote imports it before
-it forks); ``resolve_device`` loads torch on first use.
+it forks); ``resolve_device`` and ``serve`` (the serving front and the
+engine) load torch on first use.
 """
 
 from .core.api import (
@@ -52,12 +53,19 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    """``resolve_device`` imports torch, so it loads on first touch."""
+    """``resolve_device`` and ``serve`` import torch, so they load on first
+    touch."""
     if name == "resolve_device":
         from .device import resolve_device
 
         globals()[name] = resolve_device
         return resolve_device
+    if name == "serve":
+        import importlib
+
+        mod = importlib.import_module(".serve", __name__)
+        globals()[name] = mod
+        return mod
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
 
 

@@ -11,9 +11,10 @@ Slots are pinned while any in-flight sequence decodes with them; only
 unpinned residents are LRU-evictable.  Adapter weights come from host or
 device tensors; eviction is free (the slot is simply overwritten by the
 next load), and index ``max_adapters`` is the permanent zero adapter for
-base-model traffic.  The JAX pool also pages weights in through the
-object plane (an ``ObjectRef``); that source waits for the port of the
-runtime and is refused with a ``TypeError``.
+base-model traffic.  Weights may also page in through the object store:
+an ``ObjectRef`` source is read with the runtime's ``get`` when the
+adapter loads.  Tensors come back from the store on the CPU, so what it
+held is moved to the pool's device.
 
 Not thread-safe by design: the engine's loop thread owns the pool the same
 way it owns the KV pools (acquire/release only happen between decode
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..core.object_ref import ObjectRef
 from ..device import DeviceLike, resolve_device
 from ..models.llama import Lora
 from ..models.paged import (AdapterArrays, adapter_load, init_adapter_pool,
@@ -41,22 +43,21 @@ def _check_source(source: Any, lazy: bool = True) -> None:
     """Raise ``TypeError`` on a weight source the pool cannot read (with
     ``lazy=False``, on one that is not weights themselves: what a
     callable source returned)."""
-    if type(source).__name__ == "ObjectRef":
-        raise TypeError(
-            "an object-plane ObjectRef adapter source needs the runtime, "
-            "which ray_tpu_torch does not port yet (ROADMAP.md); pass "
-            "packed tensors, a Lora, a numpy tree or a callable")
+    if lazy and isinstance(source, ObjectRef):
+        return
     if not (isinstance(source, (dict, Lora)) or (lazy and callable(source))):
         raise TypeError(
             f"adapter source of type {type(source).__name__}: expected "
             f"packed tensors (pack_lora), a Lora, a numpy tree in the JAX "
-            f"layout, or a zero-argument callable returning one")
+            f"layout, an ObjectRef to one, or a zero-argument callable "
+            f"returning one")
 
 
 class AdapterPool:
     """Fixed number of device-resident adapter slots plus a host registry
     of every known adapter's weights (packed tensors, a ``Lora``, a numpy
-    tree in the JAX layout, or a callable returning one of those)."""
+    tree in the JAX layout, an ``ObjectRef`` to one of those, or a
+    callable returning one)."""
 
     def __init__(self, model_config, max_adapters: int = 4, rank: int = 8,
                  device: DeviceLike = None):
@@ -84,8 +85,9 @@ class AdapterPool:
 
     def register(self, name: str, source: Any) -> bool:
         """Make ``name`` loadable.  ``source`` is packed tensors (see
-        ``pack_lora``), a ``Lora``, a numpy tree in the JAX layout, or a
-        zero-argument callable returning one of those.  Re-registering
+        ``pack_lora``), a ``Lora``, a numpy tree in the JAX layout, an
+        ``ObjectRef`` to one of those (read when the adapter loads), or a
+        zero-argument callable returning one.  Re-registering
         drops any resident copy (the weights changed: the caller must also
         drop derived state like cached prefixes).  Returns True when a
         resident copy was dropped."""
@@ -207,13 +209,19 @@ class AdapterPool:
         self.loads += 1
 
     def _materialize(self, source: Any) -> AdapterArrays:
+        if isinstance(source, ObjectRef):
+            from ..core.api import get
+
+            source = get(source)
+            _check_source(source)
         if callable(source) and not isinstance(source, Lora):
             source = source()
             _check_source(source, lazy=False)
         if isinstance(source, Lora) or (isinstance(source, dict)
                                         and "layers" in source):
-            source = pack_lora(self.model_config, source, device=self.device)
-        return source
+            return pack_lora(self.model_config, source, device=self.device)
+        # Packed tensors, from the store (on the CPU) or from a caller.
+        return {k: v.to(self.device) for k, v in source.items()}
 
     @property
     def pinned_count(self) -> int:

@@ -46,10 +46,12 @@ Observability is the JAX engine's too, through the port's own
   with a signature, which on the card may include a kernel's build at
   first use.
 
-Not ported yet (ROADMAP.md, PyTorch/CUDA port): the serve binding
-(``LLMServer`` / ``llm_app``), and the head that flushes the rings (the
-port has no runtime yet: ``steprec.drain_buffered()`` and
-``tracing.drain_buffered()`` read them).
+The serve binding is the JAX module's too: ``LLMServer`` is the
+deployment callable (one engine per replica, tokens streamed one item
+each) and ``llm_app`` builds its application.  Both take ``device``: a
+replica builds its weights on the card it was granted
+(``llm_app`` asks for ``num_gpus=1`` a replica) unless it is given
+``device="cpu"``; a replica granted no card sees none and raises.
 """
 
 from __future__ import annotations
@@ -1156,3 +1158,148 @@ def random_lora(model_config, seed: int, rank: int = 8, alpha: float = 16.0,
             _normal_(layer.wq_lora_b, 0.05, gen)
             _normal_(layer.wv_lora_b, 0.05, gen)
     return lora
+
+
+# ------------------------------------------------------------ serve binding
+
+
+_MODEL_BUILDERS = {
+    "tiny": lambda: _tiny_config(),
+    "b1": lambda: _b1_config(),
+}
+
+
+def _tiny_config():
+    from ..models.llama import LlamaConfig
+
+    return LlamaConfig.tiny(remat=False, dtype=torch.float32)
+
+
+def _b1_config():
+    from ..models.llama import LlamaConfig
+
+    return LlamaConfig.b1(remat=False, dtype=torch.bfloat16)
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """This process's launch count of each kernel wrapper (``ops``)."""
+    from ..ops import attention, norms
+
+    return {"flash_fwd": attention.flash_attention_fwd.launches,
+            "flash_bwd_dq": attention.flash_attention_bwd_dq.launches,
+            "flash_bwd_dkv": attention.flash_attention_bwd_dkv.launches,
+            "rms_norm": norms.rms_norm_cuda.launches,
+            "rms_norm_bwd": norms.rms_norm_bwd.launches}
+
+
+class LLMServer:
+    """The deployment callable: one engine per replica, tokens streamed
+    through serve's per-item streaming path (handle iterators, HTTP SSE,
+    gRPC server-streaming).  A consumer that disconnects mid-stream
+    closes the generator, which cancels the request and frees its pages.
+
+    Multi-tenant: ``adapter=`` picks a registered LoRA (defaulting to the
+    ambient multiplexed model id, so ``multiplexed_model_id`` routing
+    composes with the engine's batched adapters), ``tenant``/``weight``
+    feed weighted-fair admission.
+
+    The weights are ``llama_init``'s from a ``torch.Generator`` seeded
+    with ``seed``, built on ``device``: the card unless ``device="cpu"``
+    (with no card visible, as in a replica granted none, that raises)."""
+
+    def __init__(self, model: str = "tiny",
+                 engine: Optional[dict] = None, seed: int = 0,
+                 warmup: bool = False,
+                 adapters: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None):
+        from ..models.llama import llama_init
+
+        cfg = _MODEL_BUILDERS[model]()
+        dev = resolve_device(device)
+        params = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+        self.engine = InferenceEngine(
+            cfg, params, EngineConfig(**(engine or {})), seed=seed,
+            device=dev)
+        for name, spec in (adapters or {}).items():
+            self.load_adapter(name, spec)
+        if warmup:
+            self.engine.warmup()
+
+    def load_adapter(self, name: str, source: Any = None) -> str:
+        """Register a LoRA adapter on this replica's engine.  ``source``
+        is packed tensors / a ``Lora`` / a numpy tree / an object-store
+        ref / a zero-arg builder, or an int seed (a deterministic random
+        adapter, ``random_lora`` on the engine's device: handy for tests
+        and benchmarks)."""
+        if isinstance(source, int):
+            seed = source
+            cfg = self.engine.model_config
+            rank = self.engine.config.lora_rank
+            dev = self.engine.device
+            source = lambda: random_lora(cfg, seed, rank=rank,  # noqa: E731
+                                         device=dev)
+        self.engine.register_adapter(name, source)
+        return name
+
+    def __call__(self, prompt_tokens, max_new_tokens: int = 16,
+                 temperature: float = 0.0,
+                 stop_token: Optional[int] = None,
+                 adapter: Optional[str] = None,
+                 tenant: str = "default", weight: float = 1.0):
+        if adapter is None:
+            # serve.multiplexed routing: the handle's multiplexed_model_id
+            # arrives via the replica's contextvar.
+            from .multiplex import get_multiplexed_model_id
+
+            adapter = get_multiplexed_model_id() or None
+        stream = self.engine.submit(
+            prompt_tokens, max_new_tokens=max_new_tokens,
+            temperature=temperature, stop_token=stop_token,
+            adapter=adapter, tenant=tenant, weight=weight)
+        try:
+            for tok in stream:
+                yield tok
+        finally:
+            # Reached on completion AND on GeneratorExit (client gone,
+            # task cancelled): idempotent, frees pages mid-flight.
+            stream.cancel()
+
+    def stats(self) -> Dict[str, Any]:
+        """The engine's ``stats()`` plus ``kernel_launches``: this replica
+        process's launch count of each CUDA kernel wrapper, so a client
+        can see which kernels its requests ran on the card."""
+        return dict(self.engine.stats(), kernel_launches=_kernel_launches())
+
+    def engine_metrics(self) -> Dict[str, Any]:
+        """SLO signal snapshot for the controller's autoscaler."""
+        return self.engine.slo_signals()
+
+    def weight_checksums(self) -> Dict[str, float]:
+        """The fp64 sum of each weight tensor, by name: lets a client check
+        that a replica built the weights it expects from the seed."""
+        return {n: float(p.double().sum())
+                for n, p in self.engine.params.named_parameters()}
+
+
+def llm_app(model: str = "tiny", engine: Optional[dict] = None,
+            num_replicas: int = 1, name: str = "llm", seed: int = 0,
+            warmup: bool = False,
+            adapters: Optional[Dict[str, Any]] = None,
+            device: DeviceLike = None):
+    """Build a servable LLM application:
+    ``serve.run(llm_app(...))`` then stream tokens via
+    ``handle.options(stream=True).remote([1, 2, 3], 16)`` or POST with
+    ``Accept: text/event-stream``.  ``adapters`` maps adapter name to an
+    int seed (random adapter) or weight source, registered on every
+    replica at startup.  Each replica is granted one card
+    (``ray_actor_options={"num_gpus": 1}``) and runs on it, unless
+    ``device="cpu"``: then it asks for none and runs on the CPU."""
+    from .api import Deployment
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    dep = Deployment(LLMServer, name, num_replicas=num_replicas,
+                     ray_actor_options=None if on_cpu else {"num_gpus": 1})
+    return dep.bind(model=model, engine=engine, seed=seed, warmup=warmup,
+                    adapters=adapters, device=device)
+

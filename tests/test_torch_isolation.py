@@ -165,7 +165,9 @@ def test_import_leaves_ray_tpu_unloaded():
             "ray_tpu_torch.util.trace_analysis, "
             "ray_tpu_torch.devtools.jitguard, ray_tpu_torch.parallel, "
             "ray_tpu_torch.collective.mesh_ops, "
-            "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.rllib; "
+            "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.rllib, "
+            "ray_tpu_torch.serve.api, ray_tpu_torch.serve.controller, "
+            "ray_tpu_torch.serve.replica, ray_tpu_torch.serve.handle; "
             "print(sorted(m for m in sys.modules if m == 'ray_tpu' "
             "or m.startswith('ray_tpu.')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -174,6 +176,39 @@ def test_import_leaves_ray_tpu_unloaded():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_serve_imports_neither_jax_nor_ray_tpu():
+    """``ray_tpu_torch.serve`` (reached lazily from the package, as
+    ``ray_tpu.serve`` is) and each module of the serving front load no JAX
+    and no ``ray_tpu``; gRPC loads only when its ingress starts."""
+    mods = ["api", "batching", "config", "controller", "engine",
+            "grpc_ingress", "handle", "multiplex", "replica",
+            "adapter_pool", "prefix_cache"]
+    code = ("import sys, ray_tpu_torch as rt\n"
+            "serve = rt.serve\n"
+            + "".join(f"import ray_tpu_torch.serve.{m}\n" for m in mods)
+            + "print(serve.__name__, sorted(m for m in sys.modules if "
+              "m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'grpc')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ray_tpu_torch.serve", "[]"]
+
+
+def test_serve_apps_side_by_side():
+    """A serve app of each package at once on one host: two heads, two
+    controllers, two HTTP ingresses, each answering its own deployment;
+    the port's replica loads no JAX and no ``ray_tpu``."""
+    import _torch_serve_scenarios as ssc
+
+    ref, got = ssc.run_pair("side_by_side")
+    assert got["http"] == [200, {"x": 3, "pkg": "ray_tpu_torch",
+                                 "loaded": []}]
+    assert ref["http"][0] == 200 and ref["http"][1]["pkg"] == "ray_tpu"
+    assert "ray_tpu" in ref["http"][1]["loaded"]
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):

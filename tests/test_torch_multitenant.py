@@ -430,10 +430,10 @@ def test_adapter_pool_lru_eviction_and_pinning(models):
                                                   device="cpu"))
     assert not pool.resident("b")
 
-    class ObjectRef:  # what the JAX pool also takes: the object plane's
+    class ObjectRef:  # named like the runtime's ref, but not one
         pass
 
-    with pytest.raises(TypeError, match="runtime"):
+    with pytest.raises(TypeError, match="expected"):
         pool.register("d", ObjectRef())
     with pytest.raises(TypeError, match="expected"):
         pool.register("d", 3.0)
