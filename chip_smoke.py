@@ -182,7 +182,36 @@ no result line):
    relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
    Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
    ``mesh=`` dp 2 against the one-process update.
-19. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+19. train gang: the training library on the card, its own
+   ``rt.init(num_cpus=4)`` (``GPU: 1`` from NVML), started once the
+   driver has emptied its cache (its reserved bytes printed first).
+   ``TorchTrainer(loop, scaling_config=ScalingConfig(num_workers=1,
+   use_gpu=True))``: the one worker, granted the card, builds full
+   Llama-3-8B (not cut) from the train phase's seed and runs the train
+   phase's configuration (B=1, S=2048, remat full,
+   ``default_optimizer(lr=1e-4)``), 1 warm and 5 timed steps, each
+   reported with its loss and milliseconds; the session's
+   ``TrainTelemetry`` adds the MFU from ``set_flops_per_step`` (6N +
+   6·L·S·d a token, against 989 TFLOP/s).  The worker's own launch counts
+   must equal six steps' (``_train_launches``), its first loss the train
+   phase's (within 1e-3), and its median step at most 1.5x the train
+   phase's in this call (printed beside it with the MFU).  Then a 2-layer
+   model at the 8B widths: 3 steps uninterrupted, and 3 steps with a
+   checkpoint (the whole ``TrainState``) reported at step 2 and the worker
+   SIGKILLed right after; under ``FailureConfig(max_failures=1)`` a new
+   worker restores it, and its step-3 loss must equal the uninterrupted
+   run's bit for bit.
+20. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
+   no card (``device="cpu"``), every learner in this process on the card.
+   (a) ``PPO`` on CartPole at ``PPOConfig``'s defaults, 3 iterations,
+   against the same driver with ``device="cpu"``: env steps and returns
+   equal, the losses within the rllib phase's 1e-4 relative (+1e-6); (b)
+   one iteration of ``PPO`` at the Nature-CNN widths and the PPO paper's
+   Atari settings on seeded 84 x 84 x 4 frames; (c) one iteration each of
+   ``DQN`` (updates from the first iteration), ``Impala``, ``SAC`` (no
+   warmup) and ``MultiAgentPPO`` (two policies): finite losses from a
+   learner on the card.  No csrc kernel launches on these paths.
+21. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -208,8 +237,10 @@ no result line):
 
 Kernel launch counters are zeroed just before the tiny serve, the
 forward, the serve, the observe mix, the multitenant, the train, each
-remat policy's, the moe and the rllib paths run and read just after (the
-rllib path launches none of the csrc kernels).  On the runtime path the
+remat policy's, the moe, the rllib and the rllib drivers' paths run and
+read just after (the rllib paths launch none of the csrc kernels).  The
+train gang's worker zeroes its own process's counts before its first
+step and reports them with its last: six steps' worth.  On the runtime path the
 GPU task and the engine actor zero their own process's counters just
 before their main path and return them after it: the task must launch K1
 once and K4 twice, the actor K1 and K4's forward.  On the serve-front
@@ -4398,6 +4429,449 @@ def phase_rllib(torch, report, seed: int, dev=None):
     report["rllib"] = out
 
 
+# ------------------------------------------------------------- train gang
+#
+# The training library on the card: ``TorchTrainer.fit()`` -> a gang of one
+# worker granted the card -> its session -> ``train.report`` -> a
+# checkpoint.  The worker runs the train phase's configuration (full
+# Llama-3-8B, not cut) and reads its own process's launch counts.
+
+#: The gang's steps: 1 warm, then 5 timed, each reported.
+GANG_STEPS = 6
+#: Its first loss against the train phase's first loss from the same seed:
+#: the same code on the same card and inputs (equal unless a fresh
+#: process picks other cuBLAS algorithms), held to 1e-3 absolute on a
+#: loss of about 12.
+GANG_LOSS_ATOL = 1e-3
+#: A gang step slower than this times the train phase's means the worker
+#: trained off the kernels or off the card.
+GANG_SLOWER_MAX = 1.5
+
+
+def _gang_cfg(dev, layers=None):
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = (LlamaConfig.tiny(dtype=torch.float32) if dev == "cpu"
+           else LlamaConfig.llama3_8b())
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _gang_loop(config):
+    """A gang worker: phase_train's model, optimizer and batch from the
+    seed (``dev="cpu"``: the tiny model on the CPU), restored from the
+    session's checkpoint when there is one; each step reported with its
+    loss and milliseconds (the session adds the MFU from
+    ``set_flops_per_step``), the last one with this process's launch counts
+    and peak memory.  ``ckpt_at`` steps carry a checkpoint (the whole
+    ``TrainState``); after reporting step ``kill_at`` the worker SIGKILLs
+    itself, once."""
+    import signal
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import llama_init, llama_loss
+    from ray_tpu_torch.models.train_state import (TrainState,
+                                                  default_optimizer,
+                                                  make_train_step)
+    from ray_tpu_torch.train.session import get_session
+
+    cpu = config["dev"] == "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _gang_cfg(config["dev"], config.get("layers"))
+    B, S = config["batch"], config["seq"]
+    gen = torch.Generator(device="cpu" if cpu else "cuda").manual_seed(
+        config["seed"] + 2)
+    params = llama_init(cfg, gen, "cpu" if cpu else None, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    tx = default_optimizer(lr=1e-4)
+    state = TrainState.create(params, tx)
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        saved = train.load_pytree(ckpt.path)
+        params.load_state_dict(saved["params"])
+        state.opt_state.load_state_dict(saved["opt_state"])
+        state.step = saved["step"]
+        del saved
+    step = make_train_step(
+        lambda p, b: llama_loss(cfg, p, b["tokens"], b["targets"]), tx)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cpu" if cpu else "cuda")
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    # PERF.md's convention: 6N + 6 L S d model flops a token.
+    get_session().telemetry.set_flops_per_step(
+        (6 * n_params + 6 * cfg.n_layers * S * cfg.d_model) * B * S)
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    _reset_counts()
+    while state.step < config["steps"]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        sync()
+        metrics = {"step": state.step, "loss": loss,
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "params": n_params, "pid": os.getpid()}
+        if state.step == config["steps"]:
+            metrics["launches"] = _read_counts()
+            metrics["peak_gb"] = (0.0 if cpu else
+                                  torch.cuda.max_memory_allocated() / 1e9)
+            metrics["visible"] = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ck = None
+        if state.step in config.get("ckpt_at", ()):
+            d = tempfile.mkdtemp(prefix="gang_ckpt_", dir=config["scratch"])
+            t1 = time.perf_counter()
+            train.save_pytree(state, d)
+            metrics["save_s"] = time.perf_counter() - t1
+            ck = train.Checkpoint.from_directory(d)
+        train.report(metrics, checkpoint=ck)
+        if ck is not None:
+            shutil.rmtree(ck.path, ignore_errors=True)
+        marker = config.get("marker")
+        if config.get("kill_at") == state.step and not os.path.exists(marker):
+            open(marker, "w").close()
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _gang_fit(train, config, scratch, name, max_failures=0):
+    """``TorchTrainer(_gang_loop)`` on one worker granted the card."""
+    t0 = time.perf_counter()
+    res = train.TorchTrainer(
+        _gang_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=config["dev"] != "cpu"),
+        run_config=train.RunConfig(
+            name=name, storage_path=scratch,
+            failure_config=train.FailureConfig(max_failures=max_failures)),
+    ).fit()
+    check(res.error is None, f"train gang {name} failed: {res.error}")
+    return res, time.perf_counter() - t0
+
+
+def phase_train_gang(torch, report, seed: int, card: str, dev=None):
+    """The training library on the card; see the module docstring's phase
+    list.  ``dev="cpu"`` rehearses it on the CPU with the tiny model (no
+    card, so no launch counts, memory or comparison with the train
+    phase)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    cpu = dev == "cpu"
+    out = {"card": card}
+    if not cpu:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["driver_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+        out["driver_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    scratch = tempfile.mkdtemp(prefix="rt_train_gang_")
+    disk = shutil.disk_usage(scratch)
+    print(f"[train_gang] the driver holds "
+          f"{out.get('driver_reserved_gb', 0):.3f} GB reserved "
+          f"({out.get('driver_allocated_gb', 0):.3f} GB allocated) of the "
+          f"card before the gang starts; scratch {scratch} "
+          f"({disk.free / 1e9:.1f} GB free); {card}", flush=True)
+    rt.init(num_cpus=4)
+    try:
+        res = rt.cluster_resources()
+        check(cpu or res.get("GPU") == 1.0,
+              f"autodetected GPU resource {res.get('GPU')}, expected 1")
+        base = {"dev": dev, "seed": seed, "batch": 1,
+                "seq": 32 if cpu else 2048, "scratch": scratch}
+        r, wall = _gang_fit(train, dict(base, steps=GANG_STEPS),
+                            scratch, "gang")
+        hist = r.metrics_history
+        check([m["step"] for m in hist] == list(range(1, GANG_STEPS + 1)),
+              f"gang reported steps {[m['step'] for m in hist]}")
+        losses = [m["loss"] for m in hist]
+        timed = hist[1:]
+        step_ms = float(np.median([m["step_ms"] for m in timed]))
+        mfus = [m["mfu"] for m in timed if "mfu" in m]
+        mfu = float(np.median(mfus)) if mfus else float("nan")
+        last = hist[-1]
+        L = _gang_cfg(dev).n_layers
+        out.update(
+            steps=GANG_STEPS, losses=losses, step_ms=step_ms,
+            step_ms_each=[m["step_ms"] for m in hist], mfu=mfu,
+            mfu_each=mfus, peak_gb=last["peak_gb"], fit_s=wall,
+            params=last["params"], visible=last["visible"],
+            launches=last["launches"])
+        check(all(np.isfinite(losses)), f"non-finite gang loss: {losses}")
+        line = (f"[train_gang] TorchTrainer, one worker granted the card "
+                f"(CUDA_VISIBLE_DEVICES={last['visible']!r}): "
+                f"{last['params'] / 1e9:.2f}B params, {L} layers, B=1 "
+                f"S={base['seq']}, remat full; step median "
+                f"{step_ms:.1f} ms over {len(timed)} timed steps "
+                f"({[round(m['step_ms'], 1) for m in hist]}), MFU "
+                f"{mfu:.4f} (TrainTelemetry, set_flops_per_step); losses "
+                f"{[round(x, 4) for x in losses]}; worker peak "
+                f"{last['peak_gb']:.2f} GB; fit {wall:.1f} s; launches "
+                f"{last['launches']}")
+        print(line, flush=True)
+        if not cpu:
+            ref = report["train"]
+            out["train_step_ms"], out["train_mfu"] = ref["step_ms"], ref["mfu"]
+            out["first_loss_err"] = abs(losses[0] - ref["losses"][0])
+            print(f"[train_gang] against the train phase in this call: "
+                  f"step {step_ms:.1f} ms vs {ref['step_ms']:.1f} ms "
+                  f"({step_ms / ref['step_ms']:.3f}x), MFU {mfu:.4f} vs "
+                  f"{ref['mfu']:.4f}; first loss {losses[0]:.6f} vs "
+                  f"{ref['losses'][0]:.6f} (|err| "
+                  f"{out['first_loss_err']:.3g}, tol {GANG_LOSS_ATOL}); "
+                  f"{card}", flush=True)
+            check(last["visible"] not in (None, ""),
+                  "the gang worker was granted no card")
+            check(last["launches"] == _train_launches(L, GANG_STEPS),
+                  f"gang launches {last['launches']}, expected "
+                  f"{_train_launches(L, GANG_STEPS)}")
+            check(out["first_loss_err"] <= GANG_LOSS_ATOL,
+                  f"the gang's first loss {losses[0]} differs from the "
+                  f"train phase's {ref['losses'][0]}")
+            check(step_ms <= GANG_SLOWER_MAX * ref["step_ms"],
+                  f"the gang's step {step_ms:.1f} ms is over "
+                  f"{GANG_SLOWER_MAX}x the train phase's "
+                  f"{ref['step_ms']:.1f} ms")
+        out["restore"] = _gang_restore(train, base, scratch, card)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    report["train_gang"] = out
+
+
+def _gang_restore(train, base, scratch, card):
+    """A 2-layer model at the 8B widths: 3 steps uninterrupted, then 3
+    steps with a checkpoint reported at step 2 and the worker killed right
+    after; the restored gang's step-3 loss must equal the uninterrupted
+    run's bit for bit."""
+    cfg = dict(base, layers=2, steps=3)
+    ref, ref_s = _gang_fit(train, cfg, scratch, "uninterrupted")
+    marker = os.path.join(scratch, "killed")
+    got, got_s = _gang_fit(train, dict(cfg, ckpt_at=[2], kill_at=2,
+                                       marker=marker),
+                           scratch, "restored", max_failures=1)
+    ref_l = [m["loss"] for m in ref.metrics_history]
+    got_l = [m["loss"] for m in got.metrics_history]
+    pids = {m["pid"] for m in got.metrics_history}
+    save_s = next(m["save_s"] for m in got.metrics_history if "save_s" in m)
+    rec = {"losses": got_l, "uninterrupted": ref_l, "killed":
+           os.path.exists(marker), "processes": len(pids),
+           "save_s": save_s, "fit_s": got_s, "uninterrupted_fit_s": ref_s}
+    print(f"[train_gang] restore (2 layers at the 8B widths): "
+          f"uninterrupted losses {ref_l}; killed after the step-2 "
+          f"checkpoint ({rec['killed']}, {len(pids)} worker processes), "
+          f"restored losses {got_l}; checkpoint save {save_s:.1f} s, fit "
+          f"{got_s:.1f} s vs {ref_s:.1f} s; {card}", flush=True)
+    check(rec["killed"] and len(pids) == 2,
+          "the worker was not killed and replaced")
+    check([m["step"] for m in got.metrics_history] == [1, 2, 3],
+          f"restored run's steps {[m['step'] for m in got.metrics_history]}")
+    check(got_l[2] == ref_l[2],
+          f"the restored step-3 loss {got_l[2]!r} differs from the "
+          f"uninterrupted run's {ref_l[2]!r}")
+    return rec
+
+
+# ---------------------------------------------------------- rllib drivers
+
+
+class _NatureFrames:
+    """Frames of the Nature-CNN input shape (84 x 84 x 4 in [0, 1]), six
+    actions, a seeded reward of 1 with probability 0.1 a step, episodes
+    truncated at 128 steps: drives PPO's runners and CNN learner at the
+    Atari widths with no emulator."""
+
+    observation_shape = (84, 84, 4)
+    observation_size = 84 * 84 * 4
+    num_actions = 6
+
+    def __init__(self, seed=None):
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+
+    def _frame(self):
+        return self._rng.random(self.observation_shape, dtype=np.float32)
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        return self._frame()
+
+    def step(self, action):
+        self._t += 1
+        return (self._frame(), float(self._rng.random() < 0.1), False,
+                self._t >= 128)
+
+
+_ALGO_LOSSES = ("policy_loss", "vf_loss", "entropy", "total_loss")
+
+
+def _algo_run(algo, n: int):
+    """``n`` iterations of ``algo.train()``: (results, wall seconds each);
+    the algorithm is stopped after."""
+    out, walls = [], []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        algo.stop()
+    return out, walls
+
+
+def _learner_on(learner) -> str:
+    return next(learner.params.parameters()).device.type
+
+
+def _ppo_cartpole_runs(rllib, seed: int, dev):
+    """PPO on CartPole at ``PPOConfig``'s defaults with the learner on
+    ``dev``: (its device type, 3 iterations' results, their walls)."""
+    cfg = rllib.PPOConfig().environment("CartPole-v1")
+    cfg.seed, cfg.device = seed, dev
+    algo = cfg.build()
+    return (_learner_on(algo.learner), *_algo_run(algo, 3))
+
+
+def phase_rllib_algos(torch, report, seed: int, card: str, dev=None):
+    """rllib's algorithm drivers on the card; see the module docstring's
+    phase list.  ``dev="cpu"`` rehearses it with every learner on the
+    CPU."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib
+
+    cpu = dev == "cpu"
+    out = {"card": card}
+    want = "cpu" if cpu else "cuda"
+    _reset_counts()
+    rt.init(num_cpus=6)
+    try:
+        # (a) PPO on CartPole at PPOConfig's defaults, learner on the card,
+        # then the same driver with the learner on the CPU.
+        on, card_res, card_w = _ppo_cartpole_runs(rllib, seed, dev)
+        _, cpu_res, cpu_w = _ppo_cartpole_runs(rllib, seed, "cpu")
+        check(on == want, f"PPO's learner ran on {on}")
+        worst = 0.0
+        for c, p in zip(card_res, cpu_res):
+            check(c["num_env_steps_sampled"] == p["num_env_steps_sampled"]
+                  and (c["episode_return_mean"] == p["episode_return_mean"]
+                       or (np.isnan(c["episode_return_mean"])
+                           and np.isnan(p["episode_return_mean"]))),
+                  f"PPO card vs CPU: env steps or returns differ: "
+                  f"{c['num_env_steps_sampled']}/{p['num_env_steps_sampled']}"
+                  f" {c['episode_return_mean']}/{p['episode_return_mean']}")
+            for k in _ALGO_LOSSES:
+                worst = max(worst, abs(c[k] - p[k])
+                            / (RL_LOSS_REL * abs(p[k]) + RL_LOSS_FLOOR))
+        out["ppo"] = {
+            "iterations": len(card_res), "learner": on,
+            "wall_s": card_w, "cpu_wall_s": cpu_w,
+            "env_steps": [r["num_env_steps_sampled"] for r in card_res],
+            "returns": [r["episode_return_mean"] for r in card_res],
+            "env_steps_per_s": [r["env_steps_per_sec"] for r in card_res],
+            "learn_s": [r["time_learn_s"] for r in card_res],
+            "cpu_learn_s": [r["time_learn_s"] for r in cpu_res],
+            "loss_ratio": worst,
+            "losses": [{k: r[k] for k in _ALGO_LOSSES} for r in card_res]}
+        print(f"[rllib_algos] PPO CartPole (PPOConfig defaults: 2 runner "
+              f"actors x 8 envs x 64 steps, 10 epochs x minibatch 256), "
+              f"learner on {on}: 3 iterations, wall "
+              f"{[round(w, 3) for w in card_w]} s, learn "
+              f"{[round(x, 3) for x in out['ppo']['learn_s']]} s (CPU "
+              f"learner {[round(x, 3) for x in out['ppo']['cpu_learn_s']]}"
+              f" s), env steps/s "
+              f"{[round(x) for x in out['ppo']['env_steps_per_s']]}; returns"
+              f" {out['ppo']['returns']} equal to the CPU learner's; worst "
+              f"loss error / ({RL_LOSS_REL} rel + {RL_LOSS_FLOOR}) "
+              f"{worst:.3g}; {card}", flush=True)
+        check(worst <= 1.0, f"PPO card vs CPU losses: ratio {worst}")
+
+        # (b) One iteration at the Nature-CNN Atari widths (the rllib
+        # phase's settings): 2 runners x 4 envs x 128 frames, 3 epochs x
+        # 256.
+        c = RL_ATARI
+        model = rllib.CNNModel(c["obs"], c["actions"],
+                               channels=c["channels"], kernels=c["kernels"],
+                               strides=c["strides"], dense=c["dense"])
+        cfg = (rllib.PPOConfig().environment(_NatureFrames)
+               .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                            rollout_fragment_length=128)
+               .training(lr=c["lr"], clip_param=0.1, entropy_coeff=0.01,
+                         num_epochs=c["epochs"],
+                         minibatch_size=c["minibatch"], model=model,
+                         device=dev))
+        cfg.vf_coeff, cfg.seed = 1.0, seed
+        algo = cfg.build()
+        on = _learner_on(algo.learner)
+        (m,), (w,) = _algo_run(algo, 1)
+        out["atari"] = {"learner": on, "wall_s": w,
+                        "frames": m["num_env_steps_sampled"],
+                        "time_sample_s": m["time_sample_s"],
+                        "time_learn_s": m["time_learn_s"],
+                        **{k: m[k] for k in _ALGO_LOSSES}}
+        print(f"[rllib_algos] PPO Nature-CNN (84x84x4, {c['channels']} "
+              f"convs, dense {c['dense']}), learner on {on}: one iteration "
+              f"of {m['num_env_steps_sampled']} frames in {w:.2f} s "
+              f"(sample {m['time_sample_s']:.2f} s, learn "
+              f"{m['time_learn_s']:.3f} s); loss {m['total_loss']:.5f}; "
+              f"{card}", flush=True)
+        check(on == want and m["num_env_steps_sampled"] == 1024
+              and all(np.isfinite(m[k]) for k in _ALGO_LOSSES),
+              f"PPO Nature-CNN iteration: {out['atari']}")
+
+        # (c) One iteration each of DQN, IMPALA, SAC and MultiAgentPPO.
+        builds = {
+            "dqn": (rllib.DQNConfig().environment("CartPole-v1")
+                    .training(learning_starts=0, device=dev, seed=seed),
+                    ("loss", "td_error_mean", "qf_mean")),
+            "impala": (rllib.ImpalaConfig().environment("CartPole-v1")
+                       .training(device=dev),
+                       _ALGO_LOSSES + ("mean_rho",)),
+            "sac": (rllib.SACConfig().training(warmup_steps=0, device=dev,
+                                               seed=seed),
+                    ("critic_loss", "actor_loss", "alpha")),
+            "multi_agent": (
+                rllib.MultiAgentPPOConfig()
+                .environment("MultiAgentCartPole", num_agents=2)
+                .multi_agent(policies=["p0", "p1"],
+                             policy_mapping_fn=lambda a: "p" + a[-1])
+                .training(device=dev, seed=seed), None)}
+        for name, (cfg, keys) in builds.items():
+            algo = cfg.build()
+            learners = (algo.learners.values() if name == "multi_agent"
+                        else [algo.learner])
+            ons = sorted({_learner_on(ln) for ln in learners})
+            (m,), (w,) = _algo_run(algo, 1)
+            if keys is None:
+                vals = {f"{pid}.{k}": v for pid, pm in m["policies"].items()
+                        for k, v in pm.items() if k in _ALGO_LOSSES}
+            else:
+                vals = {k: m[k] for k in keys if k in m}
+            rec = {"learner": ons, "wall_s": w, **vals,
+                   "env_steps": m["num_env_steps_sampled_lifetime"]}
+            out[name] = rec
+            print(f"[rllib_algos] {name}: one iteration, learner on {ons}, "
+                  f"{rec['env_steps']} env steps in {w:.2f} s; "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in vals.items())
+                  + f"; {card}", flush=True)
+            check(ons == [want] and vals and len(vals) >= (
+                      len(keys) if keys else 8)
+                  and all(np.isfinite(v) for v in vals.values()),
+                  f"{name}: the learner did not update on {want}: {rec}")
+    finally:
+        rt.shutdown()
+    counts = _read_counts()
+    out["launches"] = counts
+    check(not any(counts.values()),
+          f"a csrc kernel launched on the rllib drivers' path: {counts}")
+    report["rllib_algos"] = out
+
+
 # ---------------------------------------------------------------- parallel
 #
 # Four ranks on the one card.  NCCL refuses two ranks on one device, so
@@ -5001,6 +5475,16 @@ def phase_parallel(torch, report, seed: int, card: str):
     report["parallel"] = out
 
 
+def _timed(report, name: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed and kept in the report."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    secs = time.perf_counter() - t0
+    report.setdefault("phase_s", {})[name] = secs
+    print(f"[time] {name}: {secs:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5026,48 +5510,66 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     report = {"card": card}
     t_all = time.perf_counter()
-    phase_build(report)
-    phase_rms(torch, report)
-    phase_flash(torch, report)
-    phase_flash_bwd(torch, report)
-    phase_tiny_serve(torch, report, args.seed)
-    cfg, params = phase_forward(torch, report, args.seed)
-    phase_serve(torch, report, cfg, params, args.seed)
-    phase_serve_profile(torch, report, cfg, params, args.seed)
-    phase_observe(torch, report, cfg, params, args.seed)
-    phase_multitenant(torch, report, cfg, params, args.seed)
-    phase_runtime(torch, report, cfg, params, args.seed, card)
-    phase_serve_front(torch, report, args.seed, card)
+    seed = args.seed
+    _timed(report, "build", phase_build, report)
+    _timed(report, "rms", phase_rms, torch, report)
+    _timed(report, "flash", phase_flash, torch, report)
+    _timed(report, "flash_bwd", phase_flash_bwd, torch, report)
+    _timed(report, "tiny_serve", phase_tiny_serve, torch, report, seed)
+    cfg, params = _timed(report, "forward", phase_forward, torch, report,
+                         seed)
+    for name, phase in (("serve", phase_serve),
+                        ("serve_profile", phase_serve_profile),
+                        ("observe", phase_observe),
+                        ("multitenant", phase_multitenant)):
+        _timed(report, name, phase, torch, report, cfg, params, seed)
+    _timed(report, "runtime", phase_runtime, torch, report, cfg, params,
+           seed, card)
+    _timed(report, "serve_front", phase_serve_front, torch, report, seed,
+           card)
     del params  # the serving model makes room for training
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, tokens, state = phase_train(torch, report, args.seed)
-    deferred = phase_remat(torch, report, cfg, state, tokens)
+    cfg, tokens, state = _timed(report, "train", phase_train, torch, report,
+                                seed)
+    deferred = _timed(report, "remat", phase_remat, torch, report, cfg,
+                      state, tokens)
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    phase_remat_shallow(torch, report, cfg, tokens, deferred, args.seed)
-    phase_train_check(torch, report, cfg, tokens, args.seed)
-    phase_remat_check(torch, report, cfg, tokens, args.seed)
+    _timed(report, "remat_shallow", phase_remat_shallow, torch, report, cfg,
+           tokens, deferred, seed)
+    _timed(report, "train_check", phase_train_check, torch, report, cfg,
+           tokens, seed)
+    _timed(report, "remat_check", phase_remat_check, torch, report, cfg,
+           tokens, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_cfg, moe_tokens = phase_moe(torch, report, args.seed)
+    moe_cfg, moe_tokens = _timed(report, "moe", phase_moe, torch, report,
+                                 seed)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_moe_check(torch, report, moe_cfg, moe_tokens, args.seed)
-    phase_mlp(torch, report, args.seed)
+    _timed(report, "moe_check", phase_moe_check, torch, report, moe_cfg,
+           moe_tokens, seed)
+    _timed(report, "mlp", phase_mlp, torch, report, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_rllib(torch, report, args.seed)
+    _timed(report, "rllib", phase_rllib, torch, report, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_parallel(torch, report, args.seed, card)
+    _timed(report, "train_gang", phase_train_gang, torch, report, seed, card)
+    _timed(report, "rllib_algos", phase_rllib_algos, torch, report, seed,
+           card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _timed(report, "parallel", phase_parallel, torch, report, seed, card)
     report["total_s"] = time.perf_counter() - t_all
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
                           "multitenant", "runtime", "serve_front", "train",
-                          "remat", "moe", "rllib")}
+                          "remat", "moe", "rllib", "train_gang",
+                          "rllib_algos")}
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

@@ -2,7 +2,8 @@
 
 A second package beside the JAX ``ray_tpu``, which stays the reference it
 is held against.  It follows ``ray_tpu``'s layout and names (``core``,
-``ops``, ``models``, ``serve``, ``parallel``, ``collective``, ``rllib``) so
+``ops``, ``models``, ``serve``, ``train``, ``parallel``, ``collective``,
+``rllib``, ``util``) so
 each module's counterpart is easy to find, and imports only torch, numpy,
 cloudpickle, msgpack and the standard library: nothing of JAX and nothing of
 ``ray_tpu``.  The Pallas TPU kernels on its path are kernels written by hand
@@ -13,8 +14,8 @@ The runtime core is the JAX package's, with GPU grants in place of TPU chip
 grants: ``init``, ``@remote`` tasks and actors (``num_gpus=n``), ``put``,
 ``get``, ``wait``, ``kill``, ``cancel`` and placement groups.  Importing the
 package loads neither torch nor CUDA (the worker zygote imports it before
-it forks); ``resolve_device`` and ``serve`` (the serving front and the
-engine) load torch on first use.
+it forks); ``resolve_device`` and the subpackages reached as attributes
+(``rt.serve``, ``rt.train``, ``rt.rllib``, ...) load on first use.
 """
 
 from .core.api import (
@@ -52,18 +53,24 @@ from . import exceptions
 __version__ = "0.1.0"
 
 
+#: Subpackages reached as attributes (``ray_tpu_torch.train``), imported on
+#: first touch as the JAX package's are: most of them load torch.
+_SUBPACKAGES = ("serve", "train", "rllib", "collective", "util",
+                "cluster_utils")
+
+
 def __getattr__(name):
-    """``resolve_device`` and ``serve`` import torch, so they load on first
-    touch."""
+    """``resolve_device`` and the subpackages import torch, so they load on
+    first touch."""
     if name == "resolve_device":
         from .device import resolve_device
 
         globals()[name] = resolve_device
         return resolve_device
-    if name == "serve":
+    if name in _SUBPACKAGES:
         import importlib
 
-        mod = importlib.import_module(".serve", __name__)
+        mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -2,11 +2,11 @@
 and the launcher that runs one function on spawned ranks.
 
 ``initialize_process_group`` joins ``torch.distributed``'s default group:
-NCCL on the card, gloo on the CPU, unless ``backend`` says otherwise.  The
-JAX package reads the coordinator's address from the cluster KV when none
-is given; the port has no cluster client yet (the runtime is not ported),
-so it needs the address: ``host:port`` (TCP) or a URL such as
-``file:///path/store`` (a ``FileStore``).
+NCCL on the card, gloo on the CPU, unless ``backend`` says otherwise.  With
+no address given, rank 0 publishes one (``host:port`` of a free port) in
+the cluster KV and the other ranks read it there, as the JAX package does
+for its coordinator; an explicit address is ``host:port`` (TCP) or a URL
+such as ``file:///path/store`` (a ``FileStore``).
 
 ``spawn_ranks`` starts ``world_size`` processes (the spawn start method:
 each imports afresh, so nothing of the parent's state leaks in), joins them
@@ -20,12 +20,50 @@ from __future__ import annotations
 import datetime
 import os
 import queue as queue_mod
+import socket
 import time
 import traceback
 from typing import Any, Callable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _published_address(rank: int, group_name: str,
+                       timeout_s: float) -> str:
+    """Rank 0 picks ``host:port`` and publishes it under
+    ``pg:<group_name>:coordinator`` in the cluster KV; the other ranks poll
+    for it."""
+    from ..core.context import ctx
+
+    if ctx.client is None:
+        raise RuntimeError(
+            "initialize_process_group needs a cluster connection "
+            "(or pass coordinator_address explicitly)"
+        )
+    key = f"pg:{group_name}:coordinator"
+    if rank == 0:
+        host = socket.gethostbyname(socket.gethostname())
+        address = f"{host}:{_free_port()}"
+        ctx.client.kv_put(key, address.encode())
+        return address
+    deadline = time.monotonic() + timeout_s
+    while True:
+        raw = ctx.client.kv_get(key)
+        if raw is not None:
+            return raw.decode()
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"rank {rank}: coordinator address not published")
+        time.sleep(0.1)
 
 
 def initialize_process_group(world_size: int, rank: int, *,
@@ -35,15 +73,13 @@ def initialize_process_group(world_size: int, rank: int, *,
                              timeout_s: float = 120.0) -> None:
     """Join ``rank`` of ``world_size`` to the default process group.  A
     world of one is a no-op, so the same train loop runs everywhere.
-    ``group_name`` keys the address in the cluster KV in the JAX package;
-    it waits for the runtime here."""
+    Without ``coordinator_address`` the ranks meet through the cluster KV,
+    keyed by ``group_name`` (call from inside a task or actor)."""
     if world_size <= 1:
         return
     if coordinator_address is None:
-        raise RuntimeError(
-            "initialize_process_group needs a cluster connection "
-            "(or pass coordinator_address explicitly)"
-        )
+        coordinator_address = _published_address(rank, group_name,
+                                                 timeout_s)
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     url = (coordinator_address if "://" in coordinator_address

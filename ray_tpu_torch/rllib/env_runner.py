@@ -22,7 +22,7 @@ from .learner import is_state, sample_categorical
 
 class EnvRunner:
     """A plain in-process object: it becomes an actor with the port's
-    runtime, whose algorithms will pass ``device="cpu"`` (the JAX actor pins
+    runtime, whose algorithms pass ``device="cpu"`` (the JAX actor pins
     itself to the CPU with ``JAX_PLATFORMS``; the port copies no such
     default, so the policy runs on the card unless ``device="cpu"``)."""
 

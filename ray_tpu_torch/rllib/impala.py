@@ -9,18 +9,21 @@ the V-trace recursion is a reverse loop over T on the device, the
 importance ratios are held constant for the gradient as in the JAX
 package; under a mesh each rank takes its env columns and the gradients
 are averaged over dp x fsdp.  ``ImpalaConfig`` and the ``Impala``
-algorithm, which keep sample calls in flight on runner actors, wait for
-the port's runtime.
+algorithm keep sample calls in flight on runner actors (granted no card,
+so built with ``device="cpu"``); the learner stays in the driver, on the
+card unless the config says ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ..device import DeviceLike, resolve_device
 from .env import VectorEnv
 from .learner import (Program, host_floats, init_policy, is_state,
@@ -39,7 +42,7 @@ class ImpalaEnvRunner:
     learner, impala_learner.py).
 
     A plain in-process object: it becomes an actor with the port's runtime,
-    whose algorithms will pass ``device="cpu"`` (the JAX actor pins itself to
+    whose algorithms pass ``device="cpu"`` (the JAX actor pins itself to
     the CPU with ``JAX_PLATFORMS``; the port copies no such default)."""
 
     def __init__(self, env_spec, num_envs: int, seed: int = 0,
@@ -201,6 +204,13 @@ class ImpalaLearner:
     def get_weights(self) -> Dict[str, torch.Tensor]:
         return params_state(self.params)
 
+    def set_weights(self, weights) -> None:
+        """The port's ``get_weights`` state, or a JAX ``PolicyParams`` of
+        numpy arrays (or its field list)."""
+        if not is_state(weights):
+            weights = policy_params_from_jax(weights, "cpu").state_dict()
+        self.params.load_state_dict(weights)
+
     def _update(self, batch: Dict[str, torch.Tensor]):
         self._program(batch)
         if self.mesh is not None:
@@ -226,3 +236,190 @@ class ImpalaLearner:
             batch[k] = np.concatenate([f[k] for f in fragments],
                                       axis=1).astype(np.float32)
         return host_floats(self._update(to_device(batch, self.device)))
+
+
+#: The runner as an actor (the JAX package's ``ImpalaEnvRunner`` is one).
+ImpalaEnvRunnerActor = ray_tpu_torch.remote(ImpalaEnvRunner)
+
+
+class ImpalaConfig:
+    """Fluent config (reference: impala.py IMPALAConfig)."""
+
+    def __init__(self):
+        self.env_spec: Any = "CartPole-v1"
+        self.num_env_runners = 2
+        self.num_envs_per_runner = 8
+        self.rollout_fragment_length = 64
+        self.num_inflight_per_runner = 2
+        self.fragments_per_update = 2
+        self.updates_per_iteration = 8
+        self.broadcast_interval = 1
+        self.lr = 7e-4
+        self.gamma = 0.99
+        self.rho_bar = 1.0
+        self.c_bar = 1.0
+        self.vf_coeff = 0.5
+        self.entropy_coeff = 0.01
+        self.grad_clip = 40.0
+        self.hidden = 64
+        self.seed = 0
+        self.mesh = None
+        # The learner's device (the card unless "cpu") and its starting
+        # weights, set before the first broadcast primes the runners (a
+        # get_weights state or a JAX PolicyParams tree), as PPOConfig's.
+        self.device = None
+        self.initial_weights = None
+
+    def environment(self, env: Any) -> "ImpalaConfig":
+        self.env_spec = env
+        return self
+
+    def env_runners(self, num_env_runners: int = 2,
+                    num_envs_per_env_runner: int = 8,
+                    rollout_fragment_length: int = 64,
+                    num_inflight_per_runner: int = 2) -> "ImpalaConfig":
+        self.num_env_runners = num_env_runners
+        self.num_envs_per_runner = num_envs_per_env_runner
+        self.rollout_fragment_length = rollout_fragment_length
+        self.num_inflight_per_runner = num_inflight_per_runner
+        return self
+
+    def training(self, *, lr: Optional[float] = None,
+                 gamma: Optional[float] = None,
+                 entropy_coeff: Optional[float] = None,
+                 vf_coeff: Optional[float] = None,
+                 rho_bar: Optional[float] = None,
+                 c_bar: Optional[float] = None,
+                 fragments_per_update: Optional[int] = None,
+                 updates_per_iteration: Optional[int] = None,
+                 broadcast_interval: Optional[int] = None,
+                 mesh=None, device=None,
+                 initial_weights=None) -> "ImpalaConfig":
+        for name, val in (("lr", lr), ("gamma", gamma),
+                          ("entropy_coeff", entropy_coeff),
+                          ("vf_coeff", vf_coeff), ("rho_bar", rho_bar),
+                          ("c_bar", c_bar),
+                          ("fragments_per_update", fragments_per_update),
+                          ("updates_per_iteration", updates_per_iteration),
+                          ("broadcast_interval", broadcast_interval),
+                          ("mesh", mesh), ("device", device),
+                          ("initial_weights", initial_weights)):
+            if val is not None:
+                setattr(self, name, val)
+        return self
+
+    def build(self) -> "Impala":
+        return Impala(self)
+
+
+class Impala:
+    """The Algorithm: async sample -> V-trace update -> cadenced broadcast
+    (reference: impala.py:81 training_step — sampling never blocks on the
+    learner; the learner never waits for a full on-policy batch)."""
+
+    def __init__(self, config: ImpalaConfig):
+        if not ray_tpu_torch.is_initialized():
+            ray_tpu_torch.init()
+        self.config = config
+        self.runners = [
+            ImpalaEnvRunnerActor.remote(
+                config.env_spec, config.num_envs_per_runner,
+                seed=config.seed + i, device="cpu",
+            )
+            for i in range(config.num_env_runners)
+        ]
+        info = ray_tpu_torch.get(self.runners[0].env_info.remote())
+        self.learner = ImpalaLearner(
+            info["observation_size"], info["num_actions"],
+            lr=config.lr, gamma=config.gamma, rho_bar=config.rho_bar,
+            c_bar=config.c_bar, vf_coeff=config.vf_coeff,
+            entropy_coeff=config.entropy_coeff, grad_clip=config.grad_clip,
+            hidden=config.hidden, seed=config.seed, mesh=config.mesh,
+            device=config.device,
+        )
+        if config.initial_weights is not None:
+            self.learner.set_weights(config.initial_weights)
+        self.weights_version = 0
+        self._broadcast(block=True)
+        # Prime the pipeline: each runner keeps num_inflight sample calls
+        # queued (per-actor FIFO), so sampling overlaps learner updates —
+        # the bounded queue (reference: learner_thread inqueue).
+        self._inflight: Dict[Any, int] = {}
+        for i, r in enumerate(self.runners):
+            for _ in range(config.num_inflight_per_runner):
+                self._inflight[r.sample.remote(
+                    config.rollout_fragment_length)] = i
+        self.iteration = 0
+        self.total_env_steps = 0
+        self.total_updates = 0
+        self._recent_returns: List[float] = []
+
+    def _broadcast(self, block: bool = False):
+        """Ship current learner weights to every runner (one object-store
+        copy, reference: env_runner_group.sync_weights on a cadence)."""
+        ref = ray_tpu_torch.put(self.learner.get_weights())
+        calls = [r.set_weights.remote(ref, self.weights_version)
+                 for r in self.runners]
+        if block:
+            ray_tpu_torch.get(calls)
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.config
+        t0 = time.perf_counter()
+        staleness: List[int] = []
+        learn_time = 0.0
+        n_steps = 0
+        metrics: Dict[str, float] = {}
+        for _ in range(cfg.updates_per_iteration):
+            fragments = []
+            while len(fragments) < cfg.fragments_per_update:
+                done_refs, _ = ray_tpu_torch.wait(
+                    list(self._inflight), num_returns=1
+                )
+                ref = done_refs[0]
+                idx = self._inflight.pop(ref)
+                frag = ray_tpu_torch.get(ref)
+                # Immediately resubmit: the runner never idles.
+                self._inflight[self.runners[idx].sample.remote(
+                    cfg.rollout_fragment_length)] = idx
+                fragments.append(frag)
+                self._recent_returns.extend(
+                    frag["episode_returns"].tolist())
+                staleness.append(
+                    self.weights_version - frag["weights_version"])
+                n_steps += frag["rewards"].size
+            t1 = time.perf_counter()
+            metrics = self.learner.update_from_fragments(fragments)
+            learn_time += time.perf_counter() - t1
+            self.total_updates += 1
+            self.weights_version += 1
+            if self.total_updates % cfg.broadcast_interval == 0:
+                self._broadcast(block=False)
+        self._recent_returns = self._recent_returns[-100:]
+        self.total_env_steps += n_steps
+        self.iteration += 1
+        wall = time.perf_counter() - t0
+        return {
+            "training_iteration": self.iteration,
+            "num_env_steps_sampled": n_steps,
+            "num_env_steps_sampled_lifetime": self.total_env_steps,
+            "num_learner_updates_lifetime": self.total_updates,
+            "episode_return_mean": (
+                float(np.mean(self._recent_returns))
+                if self._recent_returns else float("nan")
+            ),
+            "env_steps_per_sec": n_steps / max(wall, 1e-9),
+            "learner_updates_per_sec":
+                cfg.updates_per_iteration / max(wall, 1e-9),
+            "mean_weight_staleness":
+                float(np.mean(staleness)) if staleness else 0.0,
+            "time_learn_s": learn_time,
+            **metrics,
+        }
+
+    def stop(self):
+        for r in self.runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -11,17 +11,20 @@ Trajectories are tensorized per policy inside the runner (GAE computed
 runner-side at fragment boundaries, so ragged per-agent episodes never
 ship), and each policy is a (model, params) pair, so heterogeneous
 architectures per policy work out of the box.  ``MultiAgentPPOConfig`` and
-``MultiAgentPPO``, which train one ``PPOLearner`` per policy from runner
-actors, wait for the port's runtime.
+``MultiAgentPPO`` train one ``PPOLearner`` per policy in the driver (on
+the card unless the config says ``device="cpu"``) from runner actors
+granted no card (built with ``device="cpu"``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ..device import DeviceLike, resolve_device
 from .env import CartPoleEnv
 from .learner import compute_gae, is_state, sample_categorical
@@ -129,7 +132,7 @@ class MultiAgentEnvRunner:
     GAE already applied, so ragged per-agent episodes never cross the wire.
 
     A plain in-process object: it becomes an actor with the port's runtime,
-    whose algorithms will pass ``device="cpu"`` (the JAX actor pins itself to
+    whose algorithms pass ``device="cpu"`` (the JAX actor pins itself to
     the CPU with ``JAX_PLATFORMS``; the port copies no such default, so
     the policies run on the card unless ``device="cpu"``).
     """
@@ -298,3 +301,192 @@ class MultiAgentEnvRunner:
             "episode_returns": np.asarray(drained, np.float64),
         }
         return result
+
+
+#: The runner as an actor (the JAX package's ``MultiAgentEnvRunner`` is
+#: one).
+MultiAgentEnvRunnerActor = ray_tpu_torch.remote(MultiAgentEnvRunner)
+
+
+class MultiAgentPPOConfig:
+    """Fluent config for multi-agent PPO (reference: AlgorithmConfig
+    .multi_agent(policies=..., policy_mapping_fn=...))."""
+
+    def __init__(self):
+        self.env_spec: Any = "MultiAgentCartPole"
+        self.env_kwargs: Dict[str, Any] = {}
+        self.num_env_runners = 2
+        self.rollout_fragment_length = 256
+        self.policies: List[str] = []
+        self.policy_mapping_fn: Optional[Callable[[str], str]] = None
+        self.lr = 3e-4
+        self.gamma = 0.99
+        self.lambda_ = 0.95
+        self.clip_param = 0.2
+        self.entropy_coeff = 0.01
+        self.num_epochs = 10
+        self.minibatch_size = 128
+        self.hidden = 64
+        self.seed = 0
+        self.models: Dict[str, Any] = {}
+        # The learners' device (the card unless "cpu") and their starting
+        # weights ({policy: get_weights state or JAX tree}), as PPOConfig's.
+        self.device = None
+        self.initial_weights: Optional[Dict[str, Any]] = None
+
+    def environment(self, env: Any, **env_kwargs) -> "MultiAgentPPOConfig":
+        self.env_spec = env
+        self.env_kwargs = env_kwargs
+        return self
+
+    def multi_agent(self, *, policies: List[str],
+                    policy_mapping_fn: Callable[[str], str]
+                    ) -> "MultiAgentPPOConfig":
+        self.policies = list(policies)
+        self.policy_mapping_fn = policy_mapping_fn
+        return self
+
+    def env_runners(self, num_env_runners: int = 2,
+                    rollout_fragment_length: int = 256
+                    ) -> "MultiAgentPPOConfig":
+        self.num_env_runners = num_env_runners
+        self.rollout_fragment_length = rollout_fragment_length
+        return self
+
+    def training(self, **kwargs) -> "MultiAgentPPOConfig":
+        for k, v in kwargs.items():
+            if not hasattr(self, k):
+                raise ValueError(f"unknown training option {k!r}")
+            setattr(self, k, v)
+        return self
+
+    def build(self) -> "MultiAgentPPO":
+        return MultiAgentPPO(self)
+
+
+class MultiAgentPPO:
+    """One PPOLearner per policy; runners route experience by
+    policy_mapping_fn (reference: ppo.py training_step over a
+    MultiAgentEpisode buffer + one Learner per module in the LearnerGroup).
+    """
+
+    def __init__(self, config: MultiAgentPPOConfig):
+        from .learner import PPOLearner
+        from .models import default_model
+
+        if not ray_tpu_torch.is_initialized():
+            ray_tpu_torch.init()
+        self.config = config
+        probe_env = make_multi_env(config.env_spec, **config.env_kwargs)
+        agents = list(probe_env.possible_agents)
+        if not config.policies:
+            config.policies = ["shared"]
+        mapping_fn = config.policy_mapping_fn or (lambda a: config.policies[0])
+        self.policy_mapping = {a: mapping_fn(a) for a in agents}
+        unknown = set(self.policy_mapping.values()) - set(config.policies)
+        assert not unknown, f"mapping produced unknown policies: {unknown}"
+
+        # Per-policy spaces must agree across that policy's agents.
+        self.models: Dict[str, Any] = {}
+        self.learners: Dict[str, PPOLearner] = {}
+        for pid in config.policies:
+            pid_agents = [a for a, p in self.policy_mapping.items()
+                          if p == pid]
+            if not pid_agents:
+                continue
+            shapes = {tuple(probe_env.observation_shape(a))
+                      for a in pid_agents}
+            acts = {probe_env.num_actions(a) for a in pid_agents}
+            assert len(shapes) == 1 and len(acts) == 1, (
+                f"policy {pid!r} maps agents with mismatched spaces: "
+                f"{shapes} / {acts}")
+            obs_shape, n_actions = shapes.pop(), acts.pop()
+            model = config.models.get(pid) or default_model(
+                obs_shape, n_actions, config.hidden)
+            self.models[pid] = model
+            self.learners[pid] = PPOLearner(
+                int(np.prod(obs_shape)), n_actions, lr=config.lr,
+                clip_param=config.clip_param,
+                entropy_coeff=config.entropy_coeff, hidden=config.hidden,
+                # Stable per-policy seed: list position, not hash() (which
+                # is salted per process and would break reproducibility).
+                seed=config.seed + config.policies.index(pid), model=model,
+                device=config.device,
+            )
+            if config.initial_weights and pid in config.initial_weights:
+                self.learners[pid].set_weights(config.initial_weights[pid])
+
+        self.runners = [
+            MultiAgentEnvRunnerActor.remote(
+                config.env_spec, self.policy_mapping, self.models,
+                gamma=config.gamma, lambda_=config.lambda_,
+                seed=config.seed + i, env_kwargs=config.env_kwargs,
+                device="cpu",
+            )
+            for i in range(config.num_env_runners)
+        ]
+        self._sync_weights()
+        self.iteration = 0
+        self.total_env_steps = 0
+        self._recent_returns: List[float] = []
+
+    def _sync_weights(self):
+        ref = ray_tpu_torch.put({
+            pid: ln.get_weights() for pid, ln in self.learners.items()
+        })
+        ray_tpu_torch.get([r.set_weights.remote(ref) for r in self.runners])
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.config
+        t0 = time.perf_counter()
+        samples = ray_tpu_torch.get([
+            r.sample.remote(cfg.rollout_fragment_length)
+            for r in self.runners
+        ])
+        metrics: Dict[str, Any] = {}
+        n_rows = 0
+        for pid, learner in self.learners.items():
+            parts = [s[pid] for s in samples if pid in s]
+            if not parts:
+                continue
+            batch = {
+                k: np.concatenate([p[k] for p in parts])
+                for k in parts[0]
+            }
+            n_rows += len(batch["actions"])
+            pm = learner.update_from_batch(
+                batch, num_epochs=cfg.num_epochs,
+                minibatch_size=min(cfg.minibatch_size,
+                                   len(batch["actions"])),
+                seed=cfg.seed + self.iteration,
+            )
+            metrics[pid] = pm
+        for s in samples:
+            self._recent_returns.extend(
+                s["__metrics__"]["episode_returns"].tolist())
+        self._recent_returns = self._recent_returns[-200:]
+        self._sync_weights()
+        self.iteration += 1
+        self.total_env_steps += n_rows
+        wall = time.perf_counter() - t0
+        return {
+            "training_iteration": self.iteration,
+            "num_env_steps_sampled": n_rows,
+            "num_env_steps_sampled_lifetime": self.total_env_steps,
+            "episode_return_mean": (
+                float(np.mean(self._recent_returns))
+                if self._recent_returns else float("nan")
+            ),
+            "env_steps_per_sec": n_rows / max(wall, 1e-9),
+            "policies": metrics,
+        }
+
+    def get_policy_weights(self, pid: str):
+        return self.learners[pid].get_weights()
+
+    def stop(self):
+        for r in self.runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

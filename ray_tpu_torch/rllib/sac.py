@@ -7,8 +7,9 @@ tanh-squashed Gaussian actor, automatic entropy-temperature tuning;
 sac_torch_learner computes the actor/critic/alpha losses).  The whole
 update (twin critics, actor, alpha, Polyak targets) runs on the learner's
 device (the card unless ``device="cpu"``), in the JAX package's order.
-``SACConfig`` and the ``SAC`` algorithm, which drive runner actors, wait
-for the port's runtime.
+``SACConfig`` and the ``SAC`` algorithm drive runner actors (granted no
+card, so built with ``device="cpu"``); the learner stays in the driver, on
+the card unless the config says ``device="cpu"``.
 
 Includes PendulumEnv — the classic continuous-control benchmark (public
 textbook dynamics, same constants as gym's pendulum.py), so nothing needs
@@ -19,12 +20,14 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+import ray_tpu_torch
 from ..device import DeviceLike, resolve_device
 from .learner import (Program, _he_normal, _linear, _set_linear,
                       host_floats, is_state, make_adam, params_state,
@@ -296,6 +299,13 @@ class SACLearner:
     def get_actor_weights(self) -> Dict[str, torch.Tensor]:
         return params_state(self.params.actor)
 
+    def set_weights(self, weights) -> None:
+        """Every network and alpha from a ``params`` state dict, or a JAX
+        ``SACParams`` of numpy arrays."""
+        if not is_state(weights):
+            weights = sac_params_from_jax(weights, "cpu").state_dict()
+        self.params.load_state_dict(weights)
+
 
 class ContinuousEnvRunner:
     """Vectorized continuous-action rollouts (SAC's off-policy runner;
@@ -303,7 +313,7 @@ class ContinuousEnvRunner:
     episodes into transitions).
 
     A plain in-process object: it becomes an actor with the port's runtime,
-    whose algorithms will pass ``device="cpu"`` (the JAX actor pins itself to
+    whose algorithms pass ``device="cpu"`` (the JAX actor pins itself to
     the CPU with ``JAX_PLATFORMS``; the port copies no such default)."""
 
     def __init__(self, env_cls, num_envs: int, *, action_size: int,
@@ -389,3 +399,142 @@ class ContinuousEnvRunner:
             "dones": done_b.reshape(-1),
             "episode_returns": np.asarray(out),
         }
+
+
+#: The runner as an actor (the JAX package's ``ContinuousEnvRunner`` is one).
+ContinuousEnvRunnerActor = ray_tpu_torch.remote(ContinuousEnvRunner)
+
+
+class SACConfig:
+    def __init__(self):
+        self.env_cls = PendulumEnv
+        self.num_env_runners = 1
+        self.num_envs_per_runner = 8
+        self.rollout_fragment_length = 32
+        self.lr = 3e-4
+        self.gamma = 0.99
+        self.tau = 0.005
+        self.hidden = 256
+        self.buffer_size = 100_000
+        self.batch_size = 256
+        self.updates_per_round = 16
+        self.warmup_steps = 1_000
+        self.seed = 0
+        # The learner's device (the card unless "cpu") and its starting
+        # weights (a params state dict or a JAX SACParams tree), as
+        # PPOConfig's.
+        self.device = None
+        self.initial_weights = None
+
+    def environment(self, env_cls) -> "SACConfig":
+        self.env_cls = env_cls
+        return self
+
+    def training(self, **kwargs) -> "SACConfig":
+        for k, v in kwargs.items():
+            if not hasattr(self, k):
+                raise ValueError(f"unknown SAC option {k!r}")
+            setattr(self, k, v)
+        return self
+
+    def build(self) -> "SAC":
+        return SAC(self)
+
+
+class SAC:
+    """Off-policy loop: sample transitions -> replay buffer -> k updates ->
+    actor-weight sync (reference: sac.py training_step)."""
+
+    def __init__(self, config: SACConfig):
+        if not ray_tpu_torch.is_initialized():
+            ray_tpu_torch.init()
+        self.config = config
+        env = config.env_cls()
+        obs_size = env.observation_size
+        self.learner = SACLearner(
+            obs_size, env.action_size,
+            action_low=env.action_low, action_high=env.action_high,
+            lr=config.lr, gamma=config.gamma, tau=config.tau,
+            hidden=config.hidden, seed=config.seed, device=config.device,
+        )
+        if config.initial_weights is not None:
+            self.learner.set_weights(config.initial_weights)
+        scale = (env.action_high - env.action_low) / 2.0
+        bias = (env.action_high + env.action_low) / 2.0
+        self.runners = [
+            ContinuousEnvRunnerActor.remote(
+                config.env_cls, config.num_envs_per_runner,
+                action_size=env.action_size, scale=scale, bias=bias,
+                seed=config.seed + i, device="cpu")
+            for i in range(config.num_env_runners)
+        ]
+        self._rng = np.random.default_rng(config.seed)
+        self._buffer: Dict[str, np.ndarray] = {}
+        self._buf_n = 0
+        self._sync_weights()
+        self.iteration = 0
+        self.total_env_steps = 0
+        self._recent: List[float] = []
+
+    def _sync_weights(self):
+        ref = ray_tpu_torch.put(self.learner.get_actor_weights())
+        ray_tpu_torch.get([r.set_actor_weights.remote(ref)
+                           for r in self.runners])
+
+    def _add_to_buffer(self, batch):
+        n = len(batch["rewards"])
+        cap = self.config.buffer_size
+        if not self._buffer:
+            self._buffer = {
+                k: np.empty((cap, *v.shape[1:]), v.dtype)
+                for k, v in batch.items() if k != "episode_returns"
+            }
+            self._pos = 0
+        for k, buf in self._buffer.items():
+            data = batch[k]
+            idx = (self._pos + np.arange(n)) % cap
+            buf[idx] = data
+        self._pos = (self._pos + n) % cap
+        self._buf_n = min(self._buf_n + n, cap)
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.config
+        t0 = time.perf_counter()
+        warmup = self.total_env_steps < cfg.warmup_steps
+        samples = ray_tpu_torch.get([
+            r.sample_transitions.remote(cfg.rollout_fragment_length,
+                                        random_actions=warmup)
+            for r in self.runners
+        ])
+        for s in samples:
+            self._recent.extend(s.pop("episode_returns").tolist())
+            self._add_to_buffer(s)
+            self.total_env_steps += len(s["rewards"])
+        self._recent = self._recent[-50:]
+
+        metrics: Dict[str, float] = {}
+        if self._buf_n >= cfg.batch_size and not warmup:
+            for _ in range(cfg.updates_per_round):
+                idx = self._rng.integers(0, self._buf_n, cfg.batch_size)
+                mb = {k: v[idx] for k, v in self._buffer.items()}
+                metrics = self.learner.update_from_batch(mb)
+            self._sync_weights()
+        self.iteration += 1
+        wall = time.perf_counter() - t0
+        return {
+            "training_iteration": self.iteration,
+            "num_env_steps_sampled_lifetime": self.total_env_steps,
+            "episode_return_mean": (float(np.mean(self._recent))
+                                    if self._recent else float("nan")),
+            "env_steps_per_sec": (
+                len(samples) * cfg.rollout_fragment_length
+                * cfg.num_envs_per_runner / max(wall, 1e-9)),
+            **metrics,
+        }
+
+    def stop(self):
+        for r in self.runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -3,6 +3,14 @@
 actor's ``num_gpus`` where the JAX controller passes "TPU" as
 ``num_tpus``).
 
+One deliberate change from the JAX controller: a starting replica does not
+hold the reconcile loop.  The JAX loop waits up to 120 s for each new
+replica's first ``ping``, so a replica pending on a busy card stalls every
+deployment's reconcile, and on the timeout the pending actor is left to
+take the card later for nobody.  Here a new replica sits in ``pending``
+with its ``ping`` in flight; the loop marks it ready when the ``ping``
+lands and kills it when the deadline passes or its deployment goes away.
+
 Role-equivalent to the reference's ServeController
 (reference: serve/_private/controller.py:86 run_control_loop:372 +
 deployment_state.py:2312 DeploymentStateManager): holds target state per
@@ -22,6 +30,9 @@ from typing import Any, Dict, List, Optional
 import ray_tpu_torch
 
 CONTROLLER_NAME = "SERVE_CONTROLLER"
+
+#: Seconds a starting replica has to answer its first ``ping``.
+REPLICA_START_TIMEOUT_S = 120.0
 
 
 def _publish_slo(name: str, spec: Optional[dict]):
@@ -88,6 +99,9 @@ class ServeController:
         self.targets: Dict[str, dict] = {}
         # name -> list of {"handle": ActorHandle, "id": int}
         self.replicas: Dict[str, List[dict]] = {}
+        # name -> starting replicas, each also with its first "ping" ref
+        # and a deadline; touched only by the reconcile thread.
+        self.pending: Dict[str, List[dict]] = {}
         self._next_replica_id = 0
         self._lock = threading.Lock()
         self._version = 0
@@ -179,15 +193,14 @@ class ServeController:
         return spec.get("num_replicas", 1)
 
     def _control_loop(self):
-        from .replica import ServeReplica
-
         while True:
             time.sleep(0.2)
             with self._lock:
-                if self._shutdown and not any(self.replicas.values()):
+                if self._shutdown and not any(self.replicas.values()) \
+                        and not any(self.pending.values()):
                     break
                 targets = dict(self.targets)
-            # Drop deployments no longer targeted.
+            # Drop deployments no longer targeted (starting replicas too).
             for name in list(self.replicas):
                 if name not in targets:
                     with self._lock:
@@ -195,40 +208,62 @@ class ServeController:
                         self._version += 1
                     for r in dropped:
                         self._stop_replica(r)
-            for name, spec in targets.items():
-                with self._lock:
-                    reps = list(self.replicas.get(name, ()))
-                # Replace dead replicas and version-mismatched ones
-                # (rolling update: new code/config -> new actors).  Health
-                # probes go out in parallel; stragglers past the deadline
-                # count as dead (a single hung replica must not stall the
-                # loop for every deployment).
-                changed = False
-                alive_flags = self._alive_many(reps)
-                live = []
-                for r, ok in zip(reps, alive_flags):
-                    if r["version"] != spec["version"] or not ok:
+            for name in list(self.pending):
+                if name not in targets:
+                    for r in self.pending.pop(name):
                         self._stop_replica(r)
-                        changed = True
-                    else:
-                        live.append(r)
-                reps = live
-                self._autoscale(name, spec, reps)
-                want = self._target_replicas(name)
-                while len(reps) < want:
-                    try:
-                        reps.append(self._start_replica(name, spec))
-                        changed = True
-                    except Exception:
-                        break
-                while len(reps) > want:
-                    self._stop_replica(reps.pop())
-                    changed = True
-                with self._lock:
-                    if name in self.targets:
-                        self.replicas[name] = reps
-                    if changed:
-                        self._version += 1
+            for name, spec in targets.items():
+                self._reconcile(name, spec)
+
+    def _reconcile(self, name: str, spec: dict):
+        """One pass over deployment ``name`` toward ``spec``."""
+        with self._lock:
+            reps = list(self.replicas.get(name, ()))
+        # Replace dead replicas and version-mismatched ones (rolling
+        # update: new code/config -> new actors).  Health probes go out in
+        # parallel; stragglers past the deadline count as dead (a single
+        # hung replica must not stall the loop for every deployment).
+        changed = False
+        alive_flags = self._alive_many(reps)
+        live = []
+        for r, ok in zip(reps, alive_flags):
+            if r["version"] != spec["version"] or not ok:
+                self._stop_replica(r)
+                changed = True
+            else:
+                live.append(r)
+        reps = live
+        started = self._collect_started(name, spec)
+        if started:
+            reps.extend(started)
+            changed = True
+        pending = self.pending.setdefault(name, [])
+        self._autoscale(name, spec, reps)
+        want = self._target_replicas(name)
+        while len(reps) + len(pending) < want:
+            try:
+                pending.append(self._start_replica(name, spec))
+            except Exception:
+                break
+        while pending and len(reps) + len(pending) > want:
+            self._stop_replica(pending.pop())
+        while len(reps) > want:
+            self._stop_replica(reps.pop())
+            changed = True
+        with self._lock:
+            orphans = []
+            if name in self.targets:
+                self.replicas[name] = reps
+            else:
+                # Deleted during this pass: the next pass stops what
+                # self.replicas and self.pending still hold; a replica
+                # that became ready here is in neither, so stop it now.
+                held = {r["id"] for r in self.replicas.get(name, ())}
+                orphans = [r for r in reps if r["id"] not in held]
+            if changed:
+                self._version += 1
+        for r in orphans:
+            self._stop_replica(r)
 
     def _alive_many(self, reps: List[dict]) -> List[bool]:
         if not reps:
@@ -266,9 +301,40 @@ class ServeController:
         handle = ServeReplica.options(**opts).remote(
             name, spec["cls_blob"], spec["init_args_blob"]
         )
-        ray_tpu_torch.get(handle.ping.remote(), timeout=120)  # wait ready
+        # Not waited on here: _collect_started reads the ping.
         return {"handle": handle, "id": self._next_replica_id,
-                "version": spec["version"]}
+                "version": spec["version"], "ping": handle.ping.remote(),
+                "deadline": time.monotonic() + REPLICA_START_TIMEOUT_S}
+
+    def _collect_started(self, name: str, spec: dict) -> List[dict]:
+        """The starting replicas of ``name`` whose first ``ping`` landed,
+        ready to route.  A replica of an older version, one whose ping
+        failed and one past its deadline are killed; the rest stay
+        pending."""
+        ready: List[dict] = []
+        keep: List[dict] = []
+        for r in self.pending.get(name, []):
+            if r["version"] != spec["version"]:
+                self._stop_replica(r)
+                continue
+            done, _ = ray_tpu_torch.wait([r["ping"]], num_returns=1,
+                                         timeout=0)
+            if done:
+                try:
+                    ok = ray_tpu_torch.get(r["ping"], timeout=1) == "ok"
+                except Exception:
+                    ok = False
+                if ok:
+                    ready.append({k: r[k] for k in
+                                  ("handle", "id", "version")})
+                else:
+                    self._stop_replica(r)
+            elif time.monotonic() > r["deadline"]:
+                self._stop_replica(r)
+            else:
+                keep.append(r)
+        self.pending[name] = keep
+        return ready
 
     def _stop_replica(self, r: dict):
         try:

@@ -27,6 +27,12 @@ import ray_tpu_torch
 # into ``ray_tpu_serve_replica_retries_total`` (tagged by path).
 REPLICA_RETRY_BUDGET = 3
 
+# How long a request waits for a routable replica, first pick and retries
+# alike: a replacement may still be starting, and the port's controller
+# lists no replica until its first ping lands (it does not wait for one in
+# its loop).
+REPLICA_WAIT_S = 30.0
+
 
 def _replica_retry_policy():
     """Re-route pacing after a replica death: the unified jittered-doubling
@@ -280,24 +286,31 @@ class DeploymentHandle:
         return i if self._local_load.get(i, 0) <= self._local_load.get(j, 0) \
             else j
 
-    def remote(self, *args, **kwargs) -> DeploymentResponse:
-        deadline = time.monotonic() + 30
+    def _acquire(self, release: Optional[int] = None, force: bool = False):
+        """Wait up to ``REPLICA_WAIT_S`` for a routable replica, pick one
+        and count the request against it; a retry moves its count off
+        ``release``, the replica it leaves.  Returns ``(index, handle)``."""
+        deadline = time.monotonic() + REPLICA_WAIT_S
         while True:
-            self._refresh()
+            self._refresh(force=force)
             with self._lock:
                 if self._replicas:
+                    if release in self._local_load:
+                        self._local_load[release] = max(
+                            0, self._local_load[release] - 1)
                     idx = self._pick()
-                    replica = self._replicas[idx]
                     self._local_load[idx] = self._local_load.get(idx, 0) + 1
-                    break
+                    return idx, self._replicas[idx]
             if time.monotonic() > deadline:
                 raise RuntimeError(
                     f"deployment {self.deployment_name!r} has no running "
                     "replicas"
                 )
             time.sleep(0.1)
-            self._refresh(force=True)
+            force = True
 
+    def remote(self, *args, **kwargs) -> DeploymentResponse:
+        idx, replica = self._acquire()
         state = {"idx": idx}
 
         def done():
@@ -332,16 +345,7 @@ class DeploymentHandle:
             except Exception:
                 done()
                 # Replica likely died: force-refresh and retry once.
-                self._refresh(force=True)
-                with self._lock:
-                    if not self._replicas:
-                        raise
-                    idx = self._pick()
-                    replica = self._replicas[idx]
-                    self._local_load[idx] = self._local_load.get(idx, 0) + 1
-                    # done() must release THIS replica's count, not the
-                    # dead one's (already released above).
-                    state["idx"] = idx
+                state["idx"], replica = self._acquire(force=True)
                 ref = submit(replica)
             # Late attr: the FINAL pick — the in-span retry may have
             # re-routed off a dead replica, and the trace must name the
@@ -349,24 +353,8 @@ class DeploymentHandle:
             hspan["attrs"] = {"replica": state["idx"]}
 
         def retry():
-            self._refresh(force=True)
-            with self._lock:
-                if not self._replicas:
-                    raise RuntimeError(
-                        f"deployment {self.deployment_name!r} has no "
-                        "running replicas"
-                    )
-                i = self._pick()
-                rep = self._replicas[i]
-                # Transfer the outstanding count to the retry target so the
-                # p2c picker sees its real pressure; done() releases it.
-                old = state["idx"]
-                if old in self._local_load:
-                    self._local_load[old] = max(
-                        0, self._local_load[old] - 1
-                    )
-                self._local_load[i] = self._local_load.get(i, 0) + 1
-                state["idx"] = i
+            state["idx"], rep = self._acquire(release=state["idx"],
+                                              force=True)
             return submit(rep)
 
         if self.stream:

@@ -287,7 +287,12 @@ def recovery(rt):
             return os.getpid()
 
     handle = serve.run(Svc.bind())
-    pids = {handle.remote().result() for _ in range(10)}
+    # Calls until both replicas have answered (or a deadline): routing is
+    # random, so a fixed number of calls can miss one.
+    pids = set()
+    deadline = time.time() + 30
+    while len(pids) < 2 and time.time() < deadline:
+        pids.add(handle.remote().result())
     out["before"] = len(pids)
     os.kill(next(iter(pids)), signal.SIGKILL)
 
@@ -774,6 +779,60 @@ def no_card(rt):
 
 
 @scenario
+def pending_card(rt):
+    """The port alone, one mocked card (``RT_GPUS=1``): app ``a`` holds
+    the card; app ``b`` asks for it too and waits, pending; meanwhile a
+    CPU app deploys (the reconcile loop is not held by the pending
+    replica); ``b`` is deleted while pending, then ``a``: the card comes
+    back free and a last app is granted it."""
+    rt.init(num_cpus=4)
+    serve = _serve(rt)
+    pkg = rt.__name__
+
+    def card_app(tag):
+        @serve.deployment(name=tag, ray_actor_options={"num_gpus": 1})
+        class Card:
+            def __call__(self):
+                return [tag, _visible(importlib.import_module(pkg))]
+
+        return Card.bind()
+
+    @serve.deployment
+    class Cpu:
+        def __call__(self):
+            return "cpu"
+
+    out = {"a": serve.run(card_app("a"), name="a",
+                          timeout=120).remote().result()}
+    serve.run(card_app("b"), name="b", wait_ready=False)
+    time.sleep(1.0)
+    t = time.time()
+    try:
+        out["cpu"] = serve.run(Cpu.bind(), name="cpu",
+                               timeout=60).remote().result()
+    except TimeoutError:
+        out["cpu"] = "TimeoutError"
+    out["cpu_fast"] = time.time() - t < 30
+    st = serve.status()
+    out["b_status"] = {k: st["b"][k] for k in ("target_replicas",
+                                               "running_replicas")}
+    t = time.time()
+    serve.delete("b")
+    out["delete_fast"] = time.time() - t < 5
+    serve.delete("a")
+    out["card_freed"] = _wait(
+        lambda: rt.available_resources().get("GPU") == 1.0, 30)
+    time.sleep(2.0)  # a leftover replica would take the card by now
+    out["card_still_free"] = rt.available_resources().get("GPU") == 1.0
+    out["d"] = serve.run(card_app("d"), name="d",
+                         timeout=120).remote().result()
+    out["apps"] = sorted(serve.status())
+    serve.shutdown()
+    rt.shutdown()
+    return out
+
+
+@scenario
 def side_by_side(rt):
     """A serve app of each package at once on one host (run both with
     ``run_pair``): two heads, two controllers, two HTTP ingresses, each
@@ -801,10 +860,12 @@ def side_by_side(rt):
     return out
 
 
-def run(name: str, pkg: str, env=None):
-    """Start the scenario under ``pkg`` in a subprocess; returns the
-    ``Popen`` (read it with ``result``).  ``env`` adds variables to this
-    process's environment; a value of None removes one."""
+def run(name, pkg: str, env=None):
+    """Start the scenario ``name`` (or, given a list, each of those in
+    order) under ``pkg`` in one subprocess; returns the ``Popen`` (read it
+    with ``result``: one scenario's result, or ``{name: result}`` for a
+    list).  ``env`` adds variables to this process's environment; a value
+    of None removes one."""
     import subprocess
 
     full = dict(os.environ)
@@ -818,15 +879,17 @@ def run(name: str, pkg: str, env=None):
     full["PYTHONPATH"] = os.pathsep.join(
         [root, here, full.get("PYTHONPATH", "")])
     return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--pkg", pkg, name],
+        [sys.executable, os.path.abspath(__file__), "--pkg", pkg,
+         *([name] if isinstance(name, str) else ["--many", *name])],
         cwd=root, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
 
 
-def run_pair(name: str, env=None, jax_env=None, port_env=None,
+def run_pair(name, env=None, jax_env=None, port_env=None,
              timeout: float = 240.0):
-    """The scenario under both packages at once (two clusters on one
-    host): ``(ray_tpu result, ray_tpu_torch result)``."""
+    """The scenario (or list of scenarios, see ``run``) under both packages
+    at once (two clusters on one host), one process a package:
+    ``(ray_tpu result, ray_tpu_torch result)``."""
     jp = run(name, "ray_tpu", dict(env or {}, **(jax_env or {})))
     tp = run(name, "ray_tpu_torch", dict(env or {}, **(port_env or {})))
     return result(jp, timeout), result(tp, timeout)
@@ -836,10 +899,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--pkg", required=True, choices=("ray_tpu",
                                                      "ray_tpu_torch"))
-    ap.add_argument("name", choices=sorted(SCENARIOS))
+    ap.add_argument("--many", action="store_true",
+                    help="print {name: result} of each scenario named")
+    ap.add_argument("names", nargs="+", choices=sorted(SCENARIOS))
     args = ap.parse_args(argv)
     rt = importlib.import_module(args.pkg)
-    out = SCENARIOS[args.name](rt)
+    if args.many:
+        out = {name: SCENARIOS[name](rt) for name in args.names}
+    else:
+        (name,) = args.names
+        out = SCENARIOS[name](rt)
     print("SCENARIO_RESULT " + json.dumps(out, sort_keys=True), flush=True)
 
 

@@ -2,7 +2,9 @@
 JAX package's, one mocked card each (``RT_GPUS=1`` on the port,
 ``RT_TPU_CHIPS=1`` on JAX): a replica granted the card, a rolling update
 of it on the one card, and the card granted to the next app after a
-delete.  Then the port alone: ``num_gpus`` becomes the "GPU" resource and
+delete.  Then the port alone: a replica pending on the card holds no other
+deployment's reconcile and, deleted, leaves the card free;
+``num_gpus`` becomes the "GPU" resource and
 ``num_tpus`` is refused; ``llm_app`` asks each replica for one card
 unless ``device="cpu"``; a replica granted a card it cannot reach, or
 granted none, raises instead of running on the CPU; the port's own
@@ -21,12 +23,28 @@ from ray_tpu_torch.serve.engine import LLMServer, _MODEL_BUILDERS
 _results = {}
 
 
+_PORT_ONLY = ["no_card", "pending_card"]
+
+
+def _runs():
+    """The JAX process runs ``grants``; the port's runs ``grants`` and its
+    own scenarios, in one process.  A failure is kept for every test."""
+    if "runs" not in _results:
+        try:
+            jp = sc.run(["grants"], "ray_tpu", {"RT_TPU_CHIPS": "1"})
+            tp = sc.run(["grants"] + _PORT_ONLY, "ray_tpu_torch",
+                        {"RT_GPUS": "1", "CUDA_VISIBLE_DEVICES": None})
+            _results["runs"] = (sc.result(jp, 600), sc.result(tp, 600))
+        except Exception as e:  # noqa: BLE001: re-raised by every test
+            _results["runs"] = e
+    if isinstance(_results["runs"], Exception):
+        raise _results["runs"]
+    return _results["runs"]
+
+
 def _grants():
-    if "grants" not in _results:
-        _results["grants"] = sc.run_pair(
-            "grants", jax_env={"RT_TPU_CHIPS": "1"},
-            port_env={"RT_GPUS": "1", "CUDA_VISIBLE_DEVICES": None})
-    return _results["grants"]
+    ref, got = _runs()
+    return ref["grants"], got["grants"]
 
 
 @pytest.mark.parametrize("key", ["v1", "rolled", "v2", "status", "second",
@@ -47,11 +65,69 @@ def test_gpu_resource_matches_chip():
 
 
 def _no_card():
-    if "no_card" not in _results:
-        _results["no_card"] = sc.result(sc.run(
-            "no_card", "ray_tpu_torch",
-            {"RT_GPUS": "1", "CUDA_VISIBLE_DEVICES": None}))
-    return _results["no_card"]
+    return _runs()[1]["no_card"]
+
+
+def test_pending_replica_holds_neither_the_loop_nor_the_card():
+    """App ``b`` waits for the card ``a`` holds: a CPU app deploys
+    meanwhile, deleting ``b`` returns at once, and once ``a`` is deleted
+    too the card is free and stays free (no leftover replica takes it)
+    until app ``d`` is granted it."""
+    out = _runs()[1]["pending_card"]
+    assert out["a"] == ["a", [0]]
+    assert out["cpu"] == "cpu" and out["cpu_fast"]
+    assert out["b_status"] == {"target_replicas": 1, "running_replicas": 0}
+    assert out["delete_fast"]
+    assert out["card_freed"] and out["card_still_free"]
+    assert out["d"] == ["d", [0]]
+    assert out["apps"] == ["cpu", "d"]
+
+
+@pytest.mark.parametrize("when", ["health_wait", "after_count"])
+def test_replica_ready_after_delete_is_stopped(when):
+    """``serve.delete`` landing inside a reconcile pass, while it waits on
+    the live replicas' health pings or after it read the target count: a
+    replica whose first ping landed in that pass is stopped, so every
+    replica ends stopped or still held by the controller for the next
+    pass to stop (none holds a card unseen)."""
+    import threading
+
+    from ray_tpu_torch.serve.controller import ServeController
+
+    ctl = object.__new__(ServeController._cls)
+    spec = {"version": 1, "num_replicas": 2}
+    ctl.targets = {"b": spec}
+    ctl.replicas = {"b": [{"handle": "h1", "id": 1, "version": 1}]}
+    ctl.pending = {"b": [{"handle": "h2", "id": 2, "version": 1,
+                          "ping": "ref"}]}
+    ctl._lock = threading.Lock()
+    ctl._version = 0
+    stopped = []
+
+    def alive_many(reps):
+        if when == "health_wait":
+            ctl.targets.pop("b")
+        return [True] * len(reps)
+
+    def collect_started(name, spec_):
+        r = ctl.pending[name].pop()
+        return [{k: r[k] for k in ("handle", "id", "version")}]
+
+    def target_replicas(name):
+        want = ServeController._cls._target_replicas(ctl, name)
+        if when == "after_count":
+            ctl.targets.pop("b")
+        return want
+
+    ctl._alive_many = alive_many
+    ctl._collect_started = collect_started
+    ctl._target_replicas = target_replicas
+    ctl._start_replica = lambda *a: pytest.fail("started after delete")
+    ctl._stop_replica = stopped.append
+    ctl._reconcile("b", spec)
+    held = ctl.replicas.get("b", []) + ctl.pending.get("b", [])
+    assert {r["id"] for r in stopped} | {r["id"] for r in held} == {1, 2}
+    assert 2 in {r["id"] for r in stopped}
 
 
 def test_replica_without_a_reachable_card_raises():

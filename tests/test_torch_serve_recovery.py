@@ -13,8 +13,16 @@ _results = {}
 
 
 def _recovery():
+    """Both packages' results, computed once; a failure is kept too, so
+    one scenario error fails every case at once instead of starting the
+    cluster pair again."""
     if "recovery" not in _results:
-        _results["recovery"] = sc.run_pair("recovery")
+        try:
+            _results["recovery"] = sc.run_pair("recovery")
+        except Exception as e:  # noqa: BLE001: re-raised by every test
+            _results["recovery"] = e
+    if isinstance(_results["recovery"], Exception):
+        raise _results["recovery"]
     return _results["recovery"]
 
 
