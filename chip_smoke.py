@@ -57,9 +57,8 @@ no result line):
    ``device_trace`` window over 8 decode steps, which must write its trace
    file (its idle share beside the serve-profile window's; up to three
    windows, "not measured" if CUPTI records no device activity in any);
-   then the same mix with ``step_record`` on, off, off, on, twice
-   (tokens/s, the p50 inter-token latency and the host time of each
-   record).
+   then the same mix with ``step_record`` on, off, off, on (tokens/s,
+   the p50 inter-token latency and the host time of each record).
 10. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
    The tiny model in fp32 (prefix cache on, 2 adapters): a 48-token
    shared prefix with six tails and a fork inside its second page, over
@@ -88,10 +87,10 @@ no result line):
    time in process, then by a ``num_gpus=1`` actor that builds the same
    8B weights from the seed (fp64 checksums equal to this process's) and
    an engine of the serve phase's config: tokens equal token for token.
-   Both sides then serve the prompts twice more, by one function in each
-   process (32 tokens, then 1), and report the engine's own TTFT split
-   into its queue wait and its prefill, for the first pass (the actor's
-   process is cold) and the warm ones; the first token through an actor
+   Both sides then serve the prompts once more, by one function in each
+   process (1 token each), and report the engine's own TTFT split into
+   its queue wait and its prefill, for the first pass (the actor's
+   process is cold) and the warm one; the first token through an actor
    call, and the task and actor round trips.  The actor's step records
    (17 fields), spans and devmem pools must reach the head's
    ``list_state``.  While the actor holds the card a second ``num_gpus=1``
@@ -155,7 +154,7 @@ no result line):
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
    the active parameters, peak memory; the loss falling), one step's idle
    share and one step's time by kind (expert GEMMs, dense GEMMs, dispatch
-   and combine apart from other glue); then a 2-layer full-width model's
+   and combine apart from other glue); then a 1-layer full-width model's
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
@@ -195,13 +194,36 @@ no result line):
    6·L·S·d a token, against 989 TFLOP/s).  The worker's own launch counts
    must equal six steps' (``_train_launches``), its first loss the train
    phase's (within 1e-3), and its median step at most 1.5x the train
-   phase's in this call (printed beside it with the MFU).  Then a 2-layer
+   phase's in this call (printed beside it with the MFU).  Then a 1-layer
    model at the 8B widths: 3 steps uninterrupted, and 3 steps with a
    checkpoint (the whole ``TrainState``) reported at step 2 and the worker
    SIGKILLed right after; under ``FailureConfig(max_failures=1)`` a new
    worker restores it, and its step-3 loss must equal the uninterrupted
    run's bit for bit.
-20. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
+20. data tune: ``ray_tpu_torch.data`` and ``tune`` on the card, with
+   their own ``rt.init(num_cpus=6)``.  (a) 8 seeded rows of S = 2048
+   int64 tokens through ``data.from_numpy``, ``map_batches`` (targets
+   rolled by one), ``streaming_split(1)`` and ``iter_batches(
+   batch_size=1, device="cuda")``: every batch on the card equal bit for
+   bit to its host rows, its staging tensors pinned and its copies on a
+   stream other than the consumer's (``DataContext``'s
+   ``last_prefetch_stats``); the copy GB/s (CUDA events on the copy
+   stream) and the consumer's wait per batch printed.  (b) ``Tuner(
+   TorchTrainer(loop, datasets={"train": ds}, scaling_config=
+   ScalingConfig(num_workers=1)), param_space={"train_loop_config":
+   {"lr": grid_search([1e-4, 3e-4])}}, tune_config=TuneConfig(
+   metric="loss", mode="min"))``: each trial's one worker, granted the
+   card, builds full Llama-3-8B (not cut) from the train phase's seed and
+   takes 3 AdamW steps at B=1, S=2048, one batch a step from its shard
+   (``iter_batches(batch_size=1, device="cuda")``; ``ds`` holds the
+   train phase's tokens, then two seeded rows).  Both trials must end
+   TERMINATED, each worker granted the card, each first loss equal bit
+   for bit to the train gang's, the step-2 losses differing (the lr
+   reached the loop), ``get_best_result()`` naming the trial with the
+   lower final loss, and each worker's launches exactly 3 steps' worth;
+   each trial's median step is printed beside the train phase's, with
+   the session's data wait a round.
+21. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
    no card (``device="cpu"``), every learner in this process on the card.
    (a) ``PPO`` on CartPole at ``PPOConfig``'s defaults, 3 iterations,
    against the same driver with ``device="cpu"``: env steps and returns
@@ -211,7 +233,7 @@ no result line):
    ``DQN`` (updates from the first iteration), ``Impala``, ``SAC`` (no
    warmup) and ``MultiAgentPPO`` (two policies): finite losses from a
    learner on the card.  No csrc kernel launches on these paths.
-21. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+22. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -221,12 +243,12 @@ no result line):
    ``ring_attention`` forward and backward at B 1, H 32, Hkv 8, D 128,
    causal, S 8192 over sp 4, out/dQ/dK/dV by chunk against
    ``flash_attention`` over the whole sequence (relative norm error
-   <= 2^-7, the K2/K3 phase's bf16 bound); (b) sharded: 2 layers,
-   ``MeshConfig(fsdp=2, tp=2)``, B 2, S 2048, two ``make_train_step(
-   llama_loss)`` steps: each step's loss and grad norm and every
-   parameter after the second step, and a local wq shard a quarter of the
-   global one; (c) seq-sharded: 2 layers, ``MeshConfig(fsdp=1, sp=4)``,
-   ``sp_shard_seq``, B 1, S 8192, one step (the ring in every layer); (d)
+   <= 2^-7, the K2/K3 phase's bf16 bound); (b) sharded: 1 layer,
+   ``MeshConfig(fsdp=2, tp=2)``, B 2, S 2048, one ``make_train_step(
+   llama_loss)`` step: its loss and grad norm and every parameter after
+   it, and a local wq shard a quarter of the global one; (c)
+   seq-sharded: 1 layer, ``MeshConfig(fsdp=1, sp=4)``, ``sp_shard_seq``,
+   B 1, S 8192, one step (the ring in the layer); (d)
    pipeline: 4 layers, ``make_pp_loss`` over pp 4, 4 microbatches of B 4,
    S 2048: the loss and every gradient; (e) moe-ep:
    ``MoEConfig.mixtral_8x7b(n_layers=1)``, ``MeshConfig(fsdp=1, tp=2,
@@ -240,7 +262,9 @@ forward, the serve, the observe mix, the multitenant, the train, each
 remat policy's, the moe, the rllib and the rllib drivers' paths run and
 read just after (the rllib paths launch none of the csrc kernels).  The
 train gang's worker zeroes its own process's counts before its first
-step and reports them with its last: six steps' worth.  On the runtime path the
+step and reports them with its last: six steps' worth; each data-tune
+trial's worker does the same, three steps' worth, and the path's count is
+the two trials' sum.  On the runtime path the
 GPU task and the engine actor zero their own process's counters just
 before their main path and return them after it: the task must launch K1
 once and K4 twice, the actor K1 and K4's forward.  On the serve-front
@@ -1655,7 +1679,7 @@ def phase_observe(torch, report, cfg, params, seed: int):
                           "idle_share": idle})
 
         # The recorder's cost: the same mix, recording on and off in turns
-        # (two rounds of on, off, off, on) on this engine, each run from a
+        # (one round of on, off, off, on) on this engine, each run from a
         # cold prefix cache; in the runs with recording on, the host time
         # of each _record_step call is read too.
         cost = []
@@ -1668,7 +1692,7 @@ def phase_observe(torch, report, cfg, params, seed: int):
             spent.append(time.perf_counter() - t)
 
         engine._record_step = timed_record
-        for on in (True, False, False, True) * 2:
+        for on in (True, False, False, True):
             check(_balanced(engine), "pages leaked between runs")
             engine.config.step_record = on
             steprec.drain_buffered()
@@ -2014,7 +2038,6 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
     engine = InferenceEngine(cfg, params, EngineConfig(**ecfg), seed=seed)
     try:
         local = _rt_serve(engine, prompts, new)
-        local_warm = _rt_serve(engine, prompts, new)
         local_one = _rt_serve(engine, prompts, 1)
         local_threads = _rt_threads()
     finally:
@@ -2039,7 +2062,6 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
     rt.get(actor.reset_counts.remote())
     remote = rt.get(actor.serve.remote(prompts, new), timeout=600)
     actor_counts = rt.get(actor.read_counts.remote())
-    remote_warm = rt.get(actor.serve.remote(prompts, new), timeout=600)
     remote_one = rt.get(actor.serve.remote(prompts, 1), timeout=600)
     actor_threads = rt.get(actor.threads.remote())
     match = [r["tokens"] == l["tokens"] for r, l in zip(remote, local)]
@@ -2061,8 +2083,9 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
         t = time.perf_counter()
         rt.get(actor.ping.remote())
         pings.append(time.perf_counter() - t)
-    passes = {"first": (local, remote), "warm": (local_warm, remote_warm),
-              "one_token": (local_one, remote_one)}
+    # The first pass is cold in the actor's process; the one-token pass,
+    # after it, reads the warm TTFT on both sides.
+    passes = {"first": (local, remote), "one_token": (local_one, remote_one)}
     out["serve"] = {
         "requests": len(prompts), "new_tokens": new,
         "tokens_equal": all(match),
@@ -3740,7 +3763,7 @@ def _routing(torch, cfg, params, tokens):
 
 
 def phase_moe_check(torch, report, cfg, tokens, seed: int):
-    """Two MoE layers at full width (B=1, S=256).  The tokens each expert
+    """One MoE layer at full width (B=1, S=256).  The tokens each expert
     kept, card (bf16) against CPU (fp32), with the router margins of the
     tokens whose expert choice differs.  Then the loss and every gradient
     in bf16 on the card against the same weights in fp32 on the CPU
@@ -3750,7 +3773,7 @@ def phase_moe_check(torch, report, cfg, tokens, seed: int):
     contribution between experts, which is not an arithmetic error."""
     from ray_tpu_torch.models import moe
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=1)
     params = moe.moe_init(cfg2, torch.Generator(device="cuda")
                           .manual_seed(seed + 6), trainable=True)
     tok = tokens[:, :256]
@@ -3760,8 +3783,8 @@ def phase_moe_check(torch, report, cfg, tokens, seed: int):
     loss.backward()
     loss = float(loss.detach())
     counts = _read_counts()
-    check(counts == _train_launches(2, 1),
-          f"moe check launches {counts}, expected {_train_launches(2, 1)}")
+    check(counts == _train_launches(1, 1),
+          f"moe check launches {counts}, expected {_train_launches(1, 1)}")
     got = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
     params.zero_grad(set_to_none=True)
     card_routes = _routing(torch, cfg2, params, tok)
@@ -3818,7 +3841,7 @@ def phase_moe_check(torch, report, cfg, tokens, seed: int):
     # loss 1 %.
     grad_tol, loss_tol = 5e-2, 1e-2
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
-    print(f"[moe-check] 2-layer full-width S=256 vs fp32 CPU plain path "
+    print(f"[moe-check] 1-layer full-width S=256 vs fp32 CPU plain path "
           f"with the card's expert choices ({cpu_s:.1f} s): loss "
           f"{loss:.5f} vs {ref:.5f} (rel {loss_rel:.3g}, tol {loss_tol}); "
           f"gradient rel norm err over {len(rel)} tensors, worst: "
@@ -4467,7 +4490,10 @@ def _gang_loop(config):
     ``set_flops_per_step``), the last one with this process's launch counts
     and peak memory.  ``ckpt_at`` steps carry a checkpoint (the whole
     ``TrainState``); after reporting step ``kill_at`` the worker SIGKILLs
-    itself, once."""
+    itself, once.  With ``from_dataset`` each step's tokens are the next
+    batch of the worker's "train" shard (``iter_batches(device="cuda")``)
+    instead of one batch drawn from the seed, and ``lr`` sets AdamW's
+    rate; each step also reports the session's data wait for its batch."""
     import signal
 
     import torch
@@ -4479,6 +4505,7 @@ def _gang_loop(config):
                                                   make_train_step)
     from ray_tpu_torch.train.session import get_session
 
+    t_entry = time.time()
     cpu = config["dev"] == "cpu"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4488,7 +4515,7 @@ def _gang_loop(config):
         config["seed"] + 2)
     params = llama_init(cfg, gen, "cpu" if cpu else None, trainable=True)
     n_params = sum(p.numel() for p in params.parameters())
-    tx = default_optimizer(lr=1e-4)
+    tx = default_optimizer(lr=config.get("lr", 1e-4))
     state = TrainState.create(params, tx)
     ckpt = train.get_checkpoint()
     if ckpt is not None:
@@ -4499,30 +4526,61 @@ def _gang_loop(config):
         del saved
     step = make_train_step(
         lambda p, b: llama_loss(cfg, p, b["tokens"], b["targets"]), tx)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device="cpu" if cpu else "cuda")
-    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    t_built = time.time()
+    session = get_session()
+    if config.get("from_dataset"):
+        # One batch a step from this worker's shard of the "train" dataset,
+        # copied to the card one batch ahead (``device_prefetch``).
+        shard = train.get_dataset_shard("train").iter_batches(
+            batch_size=B, device="cpu" if cpu else "cuda")
+
+        def next_batch():
+            tokens = next(shard)["tokens"]
+            return {"tokens": tokens,
+                    "targets": torch.roll(tokens, -1, dims=1)}
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cpu" if cpu else "cuda")
+        fixed = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+        def next_batch():
+            return fixed
     # PERF.md's convention: 6N + 6 L S d model flops a token.
-    get_session().telemetry.set_flops_per_step(
+    session.telemetry.set_flops_per_step(
         (6 * n_params + 6 * cfg.n_layers * S * cfg.d_model) * B * S)
     sync = (lambda: None) if cpu else torch.cuda.synchronize
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
     sync()
     _reset_counts()
+    history = []  # every step's numbers, reported again with the last
     while state.step < config["steps"]:
+        batch = next_batch()
+        data_wait_s = session._data_wait_s  # this round's, so far
         t0 = time.perf_counter()
         state, m = step(state, batch)
         loss = float(m["loss"])
         sync()
         metrics = {"step": state.step, "loss": loss,
                    "step_ms": (time.perf_counter() - t0) * 1e3,
-                   "params": n_params, "pid": os.getpid()}
+                   "params": n_params, "pid": os.getpid(),
+                   "data_wait_s": data_wait_s}
+        history.append({k: metrics[k] for k in ("step", "loss", "step_ms",
+                                                "data_wait_s")})
         if state.step == config["steps"]:
+            metrics["history"] = history
+            # Wall-clock marks: the loop's start, the model built, the
+            # last step done.
+            metrics["t_marks"] = [t_entry, t_built, time.time()]
             metrics["launches"] = _read_counts()
             metrics["peak_gb"] = (0.0 if cpu else
                                   torch.cuda.max_memory_allocated() / 1e9)
             metrics["visible"] = os.environ.get("CUDA_VISIBLE_DEVICES")
+            if config.get("from_dataset"):
+                from ray_tpu_torch.data import DataContext
+
+                metrics["prefetch"] = dict(
+                    DataContext.get_current().last_prefetch_stats)
         ck = None
         if state.step in config.get("ckpt_at", ()):
             d = tempfile.mkdtemp(prefix="gang_ckpt_", dir=config["scratch"])
@@ -4644,11 +4702,11 @@ def phase_train_gang(torch, report, seed: int, card: str, dev=None):
 
 
 def _gang_restore(train, base, scratch, card):
-    """A 2-layer model at the 8B widths: 3 steps uninterrupted, then 3
+    """A 1-layer model at the 8B widths: 3 steps uninterrupted, then 3
     steps with a checkpoint reported at step 2 and the worker killed right
     after; the restored gang's step-3 loss must equal the uninterrupted
     run's bit for bit."""
-    cfg = dict(base, layers=2, steps=3)
+    cfg = dict(base, layers=1, steps=3)
     ref, ref_s = _gang_fit(train, cfg, scratch, "uninterrupted")
     marker = os.path.join(scratch, "killed")
     got, got_s = _gang_fit(train, dict(cfg, ckpt_at=[2], kill_at=2,
@@ -4661,7 +4719,7 @@ def _gang_restore(train, base, scratch, card):
     rec = {"losses": got_l, "uninterrupted": ref_l, "killed":
            os.path.exists(marker), "processes": len(pids),
            "save_s": save_s, "fit_s": got_s, "uninterrupted_fit_s": ref_s}
-    print(f"[train_gang] restore (2 layers at the 8B widths): "
+    print(f"[train_gang] restore (1 layer at the 8B widths): "
           f"uninterrupted losses {ref_l}; killed after the step-2 "
           f"checkpoint ({rec['killed']}, {len(pids)} worker processes), "
           f"restored losses {got_l}; checkpoint save {save_s:.1f} s, fit "
@@ -4674,6 +4732,232 @@ def _gang_restore(train, base, scratch, card):
           f"the restored step-3 loss {got_l[2]!r} differs from the "
           f"uninterrupted run's {ref_l[2]!r}")
     return rec
+
+
+# --------------------------------------------------------------- data tune
+
+#: The Tuner sweep's grid of learning rates and its steps a trial.
+TUNE_LRS = (1e-4, 3e-4)
+TUNE_STEPS = 3
+#: Rows of the prefetch check's dataset.
+PREFETCH_ROWS = 8
+
+
+def _prefetch_check(torch, data, S: int, vocab: int, seed: int, dev):
+    """(a) of the data-tune phase: ``PREFETCH_ROWS`` seeded rows of S
+    int64 tokens through ``from_numpy``, ``map_batches`` (targets rolled by
+    one), ``streaming_split(1)`` and ``iter_batches(batch_size=1,
+    device=dev)``; every batch must equal its host rows bit for bit, and
+    on the card the staging must be pinned and the copies on a stream of
+    their own."""
+    rows = np.random.default_rng(seed + 17).integers(
+        0, vocab, (PREFETCH_ROWS, S), dtype=np.int64)
+    ds = data.from_numpy(rows, "tokens", override_num_blocks=4).map_batches(
+        lambda b: {"tokens": b["tokens"],
+                   "targets": np.roll(b["tokens"], -1, axis=1)})
+    (shard,) = ds.streaming_split(1)
+    index = {r.tobytes(): i for i, r in enumerate(rows)}
+    seen = []
+    t0 = time.perf_counter()
+    for batch in shard.iter_batches(batch_size=1, device=dev):
+        toks, tgt = batch["tokens"], batch["targets"]
+        check(toks.device.type == torch.device(dev).type
+              and toks.dtype == torch.int64 and tuple(toks.shape) == (1, S),
+              f"a prefetched batch is {toks.device} {toks.dtype} "
+              f"{tuple(toks.shape)}")
+        host = toks.cpu().numpy()
+        i = index.get(host[0].tobytes())
+        check(i is not None and np.array_equal(
+                  tgt.cpu().numpy()[0], np.roll(rows[i], -1)),
+              "a prefetched batch differs from every host row")
+        seen.append(i)
+    wall = time.perf_counter() - t0
+    st = dict(data.DataContext.get_current().last_prefetch_stats)
+    check(sorted(seen) == list(range(PREFETCH_ROWS)),
+          f"prefetched rows {seen}, expected each of {PREFETCH_ROWS} once")
+    check(st["batches"] == PREFETCH_ROWS and st["bytes"] == 2 * rows.nbytes,
+          f"prefetch stats {st}")
+    cuda = dev != "cpu"
+    if cuda:
+        check(st["pinned"], "a staging tensor was not pinned")
+        check(st["consumer_streams"] and st["copy_stream"]
+              not in st["consumer_streams"],
+              f"the copies ran on the consumer's stream: {st}")
+        check(len(st["copy_ms"]) == PREFETCH_ROWS, f"copy times {st}")
+    copy_s = sum(st["copy_ms"]) / 1e3
+    return {"rows": PREFETCH_ROWS, "seq": S, "bytes": st["bytes"],
+            "wall_s": wall, "pinned": st["pinned"],
+            "copy_stream": st["copy_stream"],
+            "consumer_streams": st["consumer_streams"],
+            "copy_ms": st["copy_ms"],
+            "copy_gb_s": st["bytes"] / copy_s / 1e9 if copy_s else None,
+            "wait_ms": [w * 1e3 for w in st["wait_s"]]}
+
+
+def _tune_rows(tokens, vocab: int, seed: int):
+    """The sweep's dataset rows: the train phase's tokens, then two rows
+    from a seeded numpy generator."""
+    row0 = tokens.detach().cpu().numpy().astype(np.int64)
+    S = row0.shape[1]
+    rest = np.random.default_rng(seed + 23).integers(
+        0, vocab, (2, S), dtype=np.int64)
+    return np.concatenate([row0, rest])
+
+
+def phase_data_tune(torch, report, seed: int, card: str, tokens,
+                    first_loss: float, dev=None):
+    """``ray_tpu_torch.data`` and ``tune`` on the card; see the module
+    docstring's phase list.  ``tokens`` are the train phase's batch and
+    ``first_loss`` the train gang's first loss on them.  ``dev="cpu"``
+    rehearses it on the CPU with the tiny model (no card: no pinned
+    memory, streams, launch counts or step comparison)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train, tune
+
+    cpu = dev == "cpu"
+    dstr = "cpu" if cpu else "cuda"
+    cfg = _gang_cfg(dev)
+    L = cfg.n_layers
+    S = tokens.shape[1]
+    out = {"card": card}
+    if not cpu:
+        gc.collect()
+        torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix="rt_data_tune_")
+    # A trial holds a CPU for its actor and one for its gang worker; the
+    # dataset's tasks need CPUs beside them (the Tuner counts none for
+    # them: on the CPU two trials at once would hold all of four).
+    rt.init(num_cpus=6)
+    try:
+        pf = _prefetch_check(torch, data, S, cfg.vocab_size, seed, dstr)
+        out["prefetch"] = pf
+        waits = pf["wait_ms"]
+        print(f"[data_tune] prefetch: {pf['rows']} rows of S={S} int64 "
+              f"tokens (+ rolled targets) through from_numpy, map_batches, "
+              f"streaming_split(1), iter_batches(batch_size=1, "
+              f"device={dstr!r}): every batch equal to its host rows bit "
+              f"for bit; staging pinned {pf['pinned']}, copy stream "
+              f"{pf['copy_stream']} vs consumer {pf['consumer_streams']}; "
+              f"{pf['bytes'] / 1e6:.3f} MB copied in "
+              f"{sum(pf['copy_ms']):.3f} ms of copy-stream time ("
+              + (f"{pf['copy_gb_s']:.2f} GB/s" if pf["copy_gb_s"]
+                 else "no copies") +
+              f"), consumer wait per batch {np.median(waits):.3f} ms median "
+              f"({[round(w, 3) for w in waits]}); {card}", flush=True)
+        rows = _tune_rows(tokens, cfg.vocab_size, seed)
+        ds = data.from_numpy(rows, "tokens", override_num_blocks=len(rows))
+        base = {"dev": dev, "seed": seed, "batch": 1, "seq": S,
+                "steps": TUNE_STEPS, "scratch": scratch,
+                "from_dataset": True}
+        trainer = train.TorchTrainer(
+            _gang_loop, train_loop_config=base,
+            datasets={"train": ds},
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=not cpu))
+        t0, t0_wall = time.perf_counter(), time.time()
+        results = tune.Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(TUNE_LRS))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=train.RunConfig(name="sweep", storage_path=scratch),
+        ).fit()
+        out["fit_s"] = time.perf_counter() - t0
+        trials = list(results)
+        check(len(trials) == len(TUNE_LRS)
+              and all(r.status == "TERMINATED" for r in trials),
+              f"the sweep's trials: "
+              f"{[(r.status, r.error) for r in trials]}")
+        recs = []
+        for r in trials:
+            hist = r.metrics["history"]
+            check([m["step"] for m in hist] == list(range(1, TUNE_STEPS + 1)),
+                  f"trial {r.trial_id} reported steps "
+                  f"{[m['step'] for m in hist]}")
+            recs.append({
+                "lr": r.config["train_loop_config"]["lr"],
+                "losses": [m["loss"] for m in hist],
+                "step_ms_each": [m["step_ms"] for m in hist],
+                "step_ms": float(np.median([m["step_ms"]
+                                            for m in hist[1:]])),
+                "data_wait_ms": [m["data_wait_s"] * 1e3 for m in hist],
+                "visible": r.metrics["visible"],
+                "launches": r.metrics["launches"],
+                "peak_gb": r.metrics["peak_gb"],
+                "prefetch": r.metrics["prefetch"],
+                "t_marks": r.metrics["t_marks"]})
+        # Where the sweep's wall went, trial by trial: from the previous
+        # trial's last step (or the sweep's start, for trials that ran at
+        # once) to this loop's start (trial actor, trainer, gang worker,
+        # imports), building the model, the steps; the rest is the last
+        # trial's teardown.
+        prev = t0_wall
+        for t in sorted(recs, key=lambda t: t["t_marks"][0]):
+            entry, built, done = t["t_marks"]
+            t["spans_s"] = {"to_loop": entry - (prev if entry >= prev
+                                                else t0_wall),
+                            "build": built - entry, "steps": done - built}
+            prev = max(prev, done)
+        out["teardown_s"] = t0_wall + out["fit_s"] - prev
+        out["trials"] = recs
+        best = results.get_best_result()
+        lowest = min(recs, key=lambda t: t["losses"][-1])
+        out["best_lr"] = best.config["train_loop_config"]["lr"]
+        for t in recs:
+            print(f"[data_tune] trial lr={t['lr']:g}: one worker "
+                  f"(CUDA_VISIBLE_DEVICES={t['visible']!r}), {L} layers, "
+                  f"B=1 S={S}, {TUNE_STEPS} steps from the streamed "
+                  f"dataset: losses {[round(x, 6) for x in t['losses']]}; "
+                  f"step median {t['step_ms']:.1f} ms "
+                  f"({[round(x, 1) for x in t['step_ms_each']]}); data wait "
+                  f"a round {[round(x, 3) for x in t['data_wait_ms']]} ms; "
+                  f"peak {t['peak_gb']:.2f} GB; launches {t['launches']}; "
+                  f"staging pinned {t['prefetch']['pinned']}; wall: "
+                  + ", ".join(f"{k} {v:.1f} s"
+                              for k, v in t["spans_s"].items())
+                  + f"; {card}", flush=True)
+        check(all(t["losses"][0] == first_loss for t in recs),
+              f"a trial's first loss {[t['losses'][0] for t in recs]} "
+              f"differs from the train gang's {first_loss!r}")
+        check(recs[0]["losses"][1] != recs[1]["losses"][1],
+              "both trials' step-2 losses are equal: the lr did not reach "
+              "the loop")
+        check(out["best_lr"] == lowest["lr"],
+              f"get_best_result() named lr {out['best_lr']}, the lowest "
+              f"final loss is lr {lowest['lr']}'s")
+        counts = {k: sum(t["launches"][k] for t in recs)
+                  for k in recs[0]["launches"]}
+        out["launches"] = counts
+        print(f"[data_tune] Tuner over TorchTrainer(datasets=...): "
+              f"{len(recs)} trials in {out['fit_s']:.1f} s (last "
+              f"teardown {out['teardown_s']:.1f} s), best lr "
+              f"{out['best_lr']:g}; first loss {recs[0]['losses'][0]!r} "
+              f"(train gang {first_loss!r})", flush=True)
+        if not cpu:
+            ref = report["train"]
+            out["train_step_ms"] = ref["step_ms"]
+            print(f"[data_tune] trial step medians "
+                  f"{[round(t['step_ms'], 1) for t in recs]} ms vs the "
+                  f"train phase's {ref['step_ms']:.1f} ms in this call "
+                  f"({[round(t['step_ms'] / ref['step_ms'], 3) for t in recs]}"
+                  f"x); {card}", flush=True)
+            for t in recs:
+                check(t["visible"] not in (None, ""),
+                      f"trial lr={t['lr']} ran on a worker granted no card")
+                check(t["launches"] == _train_launches(L, TUNE_STEPS),
+                      f"trial lr={t['lr']} launches {t['launches']}, "
+                      f"expected {_train_launches(L, TUNE_STEPS)}")
+                pst = t["prefetch"]
+                check(pst["pinned"] and pst["copy_stream"]
+                      not in pst["consumer_streams"],
+                      f"trial lr={t['lr']}'s prefetch: {pst}")
+                check(t["step_ms"] <= GANG_SLOWER_MAX * ref["step_ms"],
+                      f"trial lr={t['lr']}'s step {t['step_ms']:.1f} ms is "
+                      f"over {GANG_SLOWER_MAX}x the train phase's")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    report["data_tune"] = out
 
 
 # ---------------------------------------------------------- rllib drivers
@@ -4928,8 +5212,8 @@ def _par_ring_inputs(torch, seed: int):
 
 #: (layers, mesh, batch, seq, steps, sp_shard_seq) of the Llama sub-steps.
 _PAR_LLAMA = {
-    "sharded": (2, dict(fsdp=2, tp=2), 2, 2048, 2, False),
-    "seq_sharded": (2, dict(fsdp=1, sp=4), 1, 8192, 1, True),
+    "sharded": (1, dict(fsdp=2, tp=2), 2, 2048, 1, False),
+    "seq_sharded": (1, dict(fsdp=1, sp=4), 1, 8192, 1, True),
 }
 _PAR_PIPE = dict(layers=4, pp=4, n_micro=4, batch=4, seq=2048)
 _PAR_MOE = dict(layers=1, mesh=dict(fsdp=1, tp=2, ep=2), batch=1, seq=2048,
@@ -5558,6 +5842,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _timed(report, "train_gang", phase_train_gang, torch, report, seed, card)
+    _timed(report, "data_tune", phase_data_tune, torch, report, seed, card,
+           tokens, report["train_gang"]["losses"][0])
+    del tokens
     _timed(report, "rllib_algos", phase_rllib_algos, torch, report, seed,
            card)
     gc.collect()
@@ -5569,7 +5856,7 @@ def main(argv=None) -> int:
              for path in ("tiny_serve", "forward", "serve", "observe",
                           "multitenant", "runtime", "serve_front", "train",
                           "remat", "moe", "rllib", "train_gang",
-                          "rllib_algos")}
+                          "data_tune", "rllib_algos")}
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

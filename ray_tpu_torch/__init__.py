@@ -56,7 +56,7 @@ __version__ = "0.1.0"
 #: Subpackages reached as attributes (``ray_tpu_torch.train``), imported on
 #: first touch as the JAX package's are: most of them load torch.
 _SUBPACKAGES = ("serve", "train", "rllib", "collective", "util",
-                "cluster_utils")
+                "cluster_utils", "data", "tune")
 
 
 def __getattr__(name):

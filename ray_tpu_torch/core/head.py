@@ -712,6 +712,15 @@ class Head:
                 # h_health_ack.  A wedged process keeps the TCP connection
                 # open but its rpc loop stops acking.
                 dead_after = cfg.health_check_period_s * cfg.health_check_failure_threshold
+                if self._loop_lag_s > cfg.health_check_period_s:
+                    # This loop stalled (its process starved on a loaded
+                    # host) and read no acks meanwhile: the silence is the
+                    # head's, so every worker and node gets a fresh window
+                    # instead of being killed for it.
+                    for w in self.workers.values():
+                        w.last_ack = max(w.last_ack, now)
+                    for node_id in self.node_last_ack:
+                        self.node_last_ack[node_id] = now
                 for w in list(self.workers.values()):
                     if not w.conn.alive:
                         continue

@@ -10,7 +10,8 @@ learner in the driver: PyTorch on the card unless the config says
 ``device="cpu"``, sharded over a mesh's dp x fsdp when given one.  The
 runners are also plain in-process objects.  JAX weights carry across
 through the ``*_params_from_jax`` functions and each config's
-``initial_weights``.  ``as_trainable`` waits for the port of ``tune``.
+``initial_weights``.  ``PPO.as_trainable`` and ``DQN.as_trainable`` give
+``ray_tpu_torch.tune`` a function trainable.
 """
 
 from .dqn import (DQN, DQNConfig, DQNLearner, QParams, init_q, q_forward,

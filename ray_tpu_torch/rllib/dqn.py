@@ -303,8 +303,23 @@ class DQN:
     @classmethod
     def as_trainable(cls, config: DQNConfig, stop_iters: int = 100,
                      stop_reward: Optional[float] = None):
-        """Function trainable for tune (reference: Algorithm is a
-        Trainable).  Refused until ``tune`` is ported."""
-        from .ppo import as_trainable_refused
+        """Function trainable for ray_tpu_torch.tune (reference: Algorithm
+        is a Trainable)."""
 
-        as_trainable_refused(cls)
+        def trainable(tune_config):
+            from ray_tpu_torch import tune as rt_tune
+
+            algo = cls(config)
+            try:
+                result: Dict[str, Any] = {}
+                for _ in range(stop_iters):
+                    result = algo.train()
+                    rt_tune.report(result)
+                    if (stop_reward is not None
+                            and result["episode_return_mean"] >= stop_reward):
+                        break
+                return result
+            finally:
+                algo.stop()
+
+        return trainable

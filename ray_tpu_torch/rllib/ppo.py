@@ -27,15 +27,6 @@ from .learner import PPOLearner, compute_gae
 EnvRunnerActor = ray_tpu_torch.remote(EnvRunner)
 
 
-def as_trainable_refused(cls) -> None:
-    """``as_trainable`` needs ``ray_tpu_torch.tune``, which is not ported
-    yet (ROADMAP.md Queue 1, the tune/ item)."""
-    raise NotImplementedError(
-        f"{cls.__name__}.as_trainable needs ray_tpu_torch.tune, which is not "
-        "ported yet (ROADMAP.md Queue 1, the tune/ item); call train() in a "
-        "loop until then")
-
-
 class PPOConfig:
     """Fluent config (reference: algorithm_config.py AlgorithmConfig)."""
 
@@ -228,6 +219,23 @@ class PPO:
     @classmethod
     def as_trainable(cls, config: PPOConfig, stop_iters: int = 50,
                      stop_reward: Optional[float] = None):
-        """A function trainable for tune (reference: Algorithm is a
-        Trainable).  Refused until ``tune`` is ported."""
-        as_trainable_refused(cls)
+        """A function trainable for ray_tpu_torch.tune (reference: Algorithm
+        is a Trainable; tune runs algo.train() in a loop)."""
+
+        def trainable(tune_config):
+            from ray_tpu_torch import tune as rt_tune
+
+            algo = cls(config)
+            try:
+                result: Dict[str, Any] = {}
+                for _ in range(stop_iters):
+                    result = algo.train()
+                    rt_tune.report(result)
+                    if (stop_reward is not None
+                            and result["episode_return_mean"] >= stop_reward):
+                        break
+                return result
+            finally:
+                algo.stop()
+
+        return trainable

@@ -3,8 +3,11 @@
 actor's ``num_gpus`` where the JAX controller passes "TPU" as
 ``num_tpus``).
 
-One deliberate change from the JAX controller: a starting replica does not
-hold the reconcile loop.  The JAX loop waits up to 120 s for each new
+Two deliberate changes from the JAX controller.  A live replica whose
+health probe misses its 5-s deadline is replaced after ``PROBE_MISSES``
+such passes in a row, not at the first (a failed probe still replaces it
+at once).  And a starting replica does not hold the reconcile loop.  The
+JAX loop waits up to 120 s for each new
 replica's first ``ping``, so a replica pending on a busy card stalls every
 deployment's reconcile, and on the timeout the pending actor is left to
 take the card later for nobody.  Here a new replica sits in ``pending``
@@ -33,6 +36,11 @@ CONTROLLER_NAME = "SERVE_CONTROLLER"
 
 #: Seconds a starting replica has to answer its first ``ping``.
 REPLICA_START_TIMEOUT_S = 120.0
+#: Health probes in a row a live replica may leave unanswered past their
+#: 5-s deadline before it is replaced (a probe that fails, as on a dead
+#: actor, replaces it at once): on a loaded host one late answer is not a
+#: dead replica (reference: serve's health_check_failure_threshold).
+PROBE_MISSES = 3
 
 
 def _publish_slo(name: str, spec: Optional[dict]):
@@ -227,7 +235,10 @@ class ServeController:
         alive_flags = self._alive_many(reps)
         live = []
         for r, ok in zip(reps, alive_flags):
-            if r["version"] != spec["version"] or not ok:
+            # None: the probe missed its deadline; False: it failed.
+            r["missed"] = r.get("missed", 0) + 1 if ok is None else 0
+            if (r["version"] != spec["version"] or ok is False
+                    or r["missed"] >= PROBE_MISSES):
                 self._stop_replica(r)
                 changed = True
             else:
@@ -265,7 +276,9 @@ class ServeController:
         for r in orphans:
             self._stop_replica(r)
 
-    def _alive_many(self, reps: List[dict]) -> List[bool]:
+    def _alive_many(self, reps: List[dict]) -> List[Optional[bool]]:
+        """Each replica's probe: True (answered), False (failed: the actor
+        is dead), None (no answer within the 5-s deadline)."""
         if not reps:
             return []
         try:
@@ -274,10 +287,10 @@ class ServeController:
             return [False] * len(reps)
         ready, _ = ray_tpu_torch.wait(refs, num_returns=len(refs), timeout=5)
         ready_set = set(ready)
-        out = []
+        out: List[Optional[bool]] = []
         for ref in refs:
             if ref not in ready_set:
-                out.append(False)  # straggler past the deadline
+                out.append(None)  # straggler past the deadline
                 continue
             try:
                 out.append(ray_tpu_torch.get(ref, timeout=1) == "ok")

@@ -24,6 +24,18 @@ import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 
+def link_or_copy(src: str, dst: str) -> str:
+    """``dst`` as a hard link to ``src``, or a copy where no link can be
+    made (another filesystem, a filesystem without links)."""
+    try:
+        if os.path.lexists(dst):
+            os.unlink(dst)
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+    return dst
+
+
 class Checkpoint:
     """Handle to a checkpoint directory (reference: train/_checkpoint.py)."""
 
@@ -283,13 +295,19 @@ class CheckpointManager:
         self._index = 0
         os.makedirs(storage_dir, exist_ok=True)
 
-    def register(self, checkpoint: Checkpoint, metrics: dict) -> Checkpoint:
+    def register(self, checkpoint: Checkpoint, metrics: dict, *,
+                 link: bool = False) -> Checkpoint:
         """Persist a (worker-local) checkpoint into storage and apply the
-        retention policy.  Returns the persisted handle."""
+        retention policy.  Returns the persisted handle.  ``link=True``
+        hard-links the files instead of copying them, for a caller's
+        private copy that nothing writes again (the trainer's merged
+        rank checkpoints)."""
         self._index += 1
         dest = os.path.join(self.storage_dir, f"checkpoint_{self._index:06d}")
         if os.path.abspath(checkpoint.path) != dest:
-            shutil.copytree(checkpoint.path, dest, dirs_exist_ok=True)
+            shutil.copytree(checkpoint.path, dest, dirs_exist_ok=True,
+                            copy_function=(link_or_copy if link
+                                           else shutil.copy2))
         persisted = Checkpoint(dest)
         if self.score_attribute and self.score_attribute in metrics:
             score = float(metrics[self.score_attribute])

@@ -234,6 +234,9 @@ class TrainSession:
                 self.trial_dir, "staging",
                 f"step_{self.step:06d}_rank_{self.world_rank}",
             )
+            # A restarted gang may stage the same step again: fresh files,
+            # never a rewrite of ones the trainer has linked into storage.
+            shutil.rmtree(dest, ignore_errors=True)
             shutil.copytree(checkpoint.path, dest, dirs_exist_ok=True)
             persisted = dest
             self._ckpt_count += 1

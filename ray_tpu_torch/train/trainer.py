@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, List, Optional
 import ray_tpu_torch
 from ..core.config import tmp_root
 from ..exceptions import ActorDiedError, RayTpuError, WorkerCrashedError
-from .checkpoint import Checkpoint, CheckpointManager
+from .checkpoint import Checkpoint, CheckpointManager, link_or_copy
 from .config import (
     CheckpointConfig,
     FailureConfig,
@@ -67,8 +67,9 @@ class DataParallelTrainer:
     """Runs `train_loop_per_worker` on `scaling_config.num_workers` actors.
 
     The worker loop uses ray_tpu_torch.train.report/get_checkpoint/
-    get_mesh — same shape as the reference's ray.train API.  ``datasets=``
-    waits for the port of ``ray_tpu/data/`` and raises until then.
+    get_mesh/get_dataset_shard — same shape as the reference's ray.train
+    API.  Each ``datasets=`` entry with ``streaming_split`` (a
+    ``ray_tpu_torch.data.Dataset``) gives each worker a disjoint shard.
     """
 
     def __init__(
@@ -81,11 +82,6 @@ class DataParallelTrainer:
         datasets: Optional[Dict[str, Any]] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
     ):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= needs ray_tpu_torch.data, which is not ported "
-                "yet (ROADMAP.md Queue 1, the data/ item); read the data "
-                "inside the train loop until then")
         self.train_loop = train_loop_per_worker
         self.train_loop_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
@@ -93,6 +89,7 @@ class DataParallelTrainer:
             # The mesh spans the gang: one position a worker.
             self.scaling_config.mesh.resolve(self.scaling_config.num_workers)
         self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
         self.resume_from_checkpoint = resume_from_checkpoint
         # Optional hook: called with each report round's metrics (the Tuner
         # bridges this to tune.report so ASHA can early-stop trainer trials).
@@ -248,9 +245,10 @@ class DataParallelTrainer:
                 use_gpu=self.scaling_config.use_gpu,
             )
             try:
+                shards = self._make_dataset_shards(world)
                 group.setup(
                     restore.path if restore else None,
-                    None,
+                    shards,
                     collective_group=f"train-{name}",
                 )
                 # Scope drain notices to this incarnation's hosts, then OR
@@ -451,7 +449,7 @@ class DataParallelTrainer:
         merged = self._merge_checkpoints(rank_dirs)
         persisted = manager.register(
             Checkpoint(merged),
-            {"step": step, "memory_checkpoint": True},
+            {"step": step, "memory_checkpoint": True}, link=True,
         )
         # Durable marker: lets operators (and tests) see that this restore
         # point came from the in-memory replicas, not a periodic disk save.
@@ -523,7 +521,7 @@ class DataParallelTrainer:
                     if (drain_round or not replicated
                             or self._ckpt_rounds % self._disk_every_k == 0):
                         self._last_disk_ckpt_step = rank0.get("step", 0)
-                        manager.register(Checkpoint(merged), metrics)
+                        manager.register(Checkpoint(merged), metrics, link=True)
                         shutil.rmtree(merged, ignore_errors=True)
                         self._drop_pending_skipped()
                     else:
@@ -566,7 +564,7 @@ class DataParallelTrainer:
         step, merged, metrics = pending
         if step > self._last_disk_ckpt_step:
             self._last_disk_ckpt_step = step
-            persisted = manager.register(Checkpoint(merged), metrics)
+            persisted = manager.register(Checkpoint(merged), metrics, link=True)
             try:
                 persisted.update_metadata(
                     {"held_checkpoint": True, "session_step": step}
@@ -578,11 +576,33 @@ class DataParallelTrainer:
     @staticmethod
     def _merge_checkpoints(dirs: List[str]) -> str:
         """Merge per-rank checkpoint dirs (rank files must be distinct or
-        identical; rank 0 wins collisions by being copied last)."""
+        identical; rank 0 wins collisions by being linked last).  The
+        merged dir hard-links the staged files, which are never written
+        again, so a large checkpoint is not copied an extra time on its
+        way to storage; across filesystems it falls back to a copy."""
         merged = tempfile.mkdtemp(prefix="rt_merged_ckpt_")
         for d in sorted(dirs, reverse=True):
-            shutil.copytree(d, merged, dirs_exist_ok=True)
+            shutil.copytree(d, merged, dirs_exist_ok=True,
+                            copy_function=link_or_copy)
         return merged
+
+    def _make_dataset_shards(
+        self, num_workers: Optional[int] = None
+    ) -> Optional[List[Dict[str, Any]]]:
+        if not self.datasets:
+            return None
+        n = num_workers or self.scaling_config.num_workers
+        per_worker: List[Dict[str, Any]] = [dict() for _ in range(n)]
+        for dname, ds in self.datasets.items():
+            if hasattr(ds, "streaming_split"):
+                shards = ds.streaming_split(n)
+            elif isinstance(ds, (list, tuple)):
+                shards = [list(ds[i::n]) for i in range(n)]
+            else:
+                shards = [ds] * n  # replicated (caller shards inside loop)
+            for i in range(n):
+                per_worker[i][dname] = shards[i]
+        return per_worker
 
 
 class TorchTrainer(DataParallelTrainer):

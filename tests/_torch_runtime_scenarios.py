@@ -412,6 +412,35 @@ def _visible(rt):
 
 
 @scenario
+def stalled_head(rt):
+    """With health probes every 0.5 s and two misses allowed, the head's
+    event loop is blocked for 3 s (its process starved on a loaded host);
+    the port's head gives its workers a fresh window after such a stall,
+    so a live actor survives it (the JAX head kills it)."""
+    ctx = importlib.import_module(rt.__name__ + ".core.context").ctx
+
+    rt.init(num_cpus=2, system_config={"health_check_period_s": 0.5,
+                                       "health_check_failure_threshold": 2})
+
+    @rt.remote
+    class Echo:
+        def ping(self, x):
+            return x
+
+    a = Echo.remote()
+    out = {"before": rt.get(a.ping.remote(1), timeout=60)}
+    _, server_thread = ctx.head_process
+    server_thread.loop.call_soon_threadsafe(time.sleep, 3.0)
+    time.sleep(5.0)  # the stall, then a few ticks after it
+    try:
+        out["after"] = rt.get(a.ping.remote(2), timeout=60)
+    except Exception as e:  # noqa: BLE001: part of the result
+        out["after"] = type(e).__name__
+    rt.shutdown()
+    return out
+
+
+@scenario
 def grants(rt):
     """Two mocked cards: whole grants, grants held by actors, a grant
     freed by ``kill``, and a task queued behind a held card."""
@@ -625,6 +654,10 @@ def run(name: str, pkg: str, env=None, timeout: float = 240.0):
     import subprocess
 
     full = dict(os.environ)
+    # A scenario starts its own cluster: an address this process holds
+    # (its own cluster, while one is up) must not send it to that one.
+    for k in ("RT_ADDRESS", "RT_TORCH_ADDRESS"):
+        full.pop(k, None)
     for k, v in (env or {}).items():
         if v is None:
             full.pop(k, None)

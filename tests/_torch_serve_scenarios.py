@@ -68,6 +68,21 @@ def _sse(port: int, path: str, body):
     return {"status": status, "type": ctype, "raw": raw.decode()}
 
 
+def _settled_status(serve, timeout: float = 60.0):
+    """``serve.status()`` once every app runs its target replica count:
+    right after a rolling update or a delete the controller may still be
+    stopping a stale replica or starting a new one, and the two packages'
+    controllers reach that state at different times."""
+    st = serve.status()
+    deadline = time.time() + timeout
+    while time.time() < deadline and any(
+            a["running_replicas"] != a["target_replicas"]
+            for a in st.values()):
+        time.sleep(0.2)
+        st = serve.status()
+    return st
+
+
 def _wait(cond, timeout: float = 60.0, every: float = 0.2) -> bool:
     deadline = time.time() + timeout
     while time.time() < deadline:
@@ -703,8 +718,14 @@ def grants(rt):
     rt.init(num_cpus=4)
     serve = _serve(rt)
     pkg = rt.__name__
-    out = {"resources": {k: v for k, v in rt.cluster_resources().items()
-                         if k in ("GPU", "TPU")}}
+
+    def cards():
+        return {k: v for k, v in rt.cluster_resources().items()
+                if k in ("GPU", "TPU")}
+
+    # The node's resources, once it has registered them.
+    _wait(cards, 30)
+    out = {"resources": cards()}
 
     def make(tag):
         @serve.deployment(name="card", ray_actor_options=_grant(rt, 1))
@@ -720,7 +741,7 @@ def grants(rt):
     handle = serve.run(make("v2").bind(), name="card", timeout=120)
     out["rolled"] = _wait(lambda: handle.remote().result()[0] == "v2", 60)
     out["v2"] = handle.remote().result()
-    out["status"] = serve.status()["card"]
+    out["status"] = _settled_status(serve)["card"]
     rolled_s = time.time() - t
 
     @serve.deployment(ray_actor_options=_grant(rt, 1))
@@ -733,7 +754,7 @@ def grants(rt):
     serve.delete("card")
     second = serve.run(Second.bind(), timeout=120)
     out["second"] = second.remote().result()
-    out["final_status"] = serve.status()
+    out["final_status"] = _settled_status(serve)
     serve.shutdown()
     rt.shutdown()
     print(f"rolling update on one card: {rolled_s:.1f} s", file=sys.stderr)
@@ -869,6 +890,10 @@ def run(name, pkg: str, env=None):
     import subprocess
 
     full = dict(os.environ)
+    # A scenario starts its own cluster: an address this process holds
+    # (its own cluster, while one is up) must not send it to that one.
+    for k in ("RT_ADDRESS", "RT_TORCH_ADDRESS"):
+        full.pop(k, None)
     for k, v in (env or {}).items():
         if v is None:
             full.pop(k, None)

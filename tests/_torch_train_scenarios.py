@@ -614,6 +614,10 @@ def run(names, pkg: str, env=None):
     import subprocess
 
     full = dict(os.environ)
+    # A scenario starts its own cluster: an address this process holds
+    # (its own cluster, while one is up) must not send it to that one.
+    for k in ("RT_ADDRESS", "RT_TORCH_ADDRESS"):
+        full.pop(k, None)
     for k, v in (env or {}).items():
         if v is None:
             full.pop(k, None)

@@ -224,3 +224,55 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     params = llama_init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(cfg, params, EngineConfig(prefix_cache=False))
+
+    # The data path's device copy, and (in a port cluster with no card) a
+    # default TorchTrainer trial and iter_batches to a CUDA device.
+    import numpy as np
+
+    import _torch_data_scenarios as dsc
+    from ray_tpu_torch.data.iterator import device_prefetch
+
+    for dev in ("cuda", True):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            next(device_prefetch(iter([{"x": np.arange(3)}]), dev))
+    out = dsc.result(dsc.run(["no_card"], "ray_tpu_torch",
+                             {"RT_GPUS": None, "CUDA_VISIBLE_DEVICES": None}),
+                     240)["no_card"]
+    assert out == {"gpus": 0.0, "trial": ["ERROR", True], "cuda": True,
+                   "true": True, "shard": True}
+
+
+def test_data_and_tune_import_without_pyarrow_pandas_pil():
+    """The card's machine has no pyarrow, pandas or PIL: the port's data
+    and tune import without them, and numpy blocks, batches and the
+    device copy need none of them."""
+    code = (
+        "import sys\n"
+        "class Hide:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('pyarrow', 'pandas', 'PIL'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Hide())\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch.data as d, ray_tpu_torch.tune as t\n"
+        "from ray_tpu_torch.data.block import Block\n"
+        "from ray_tpu_torch.data.iterator import (batches_from_blocks,\n"
+        "                                          device_prefetch)\n"
+        "from ray_tpu_torch.data.dataset import _coerce_batch_out\n"
+        "b = Block.from_batch({'x': np.arange(5)})\n"
+        "assert not b.is_arrow and b.num_rows == 5\n"
+        "out = list(device_prefetch(batches_from_blocks(iter([b]), 2),\n"
+        "                           'cpu'))\n"
+        "assert [o['x'].tolist() for o in out] == [[0, 1], [2, 3], [4]]\n"
+        "try:\n"
+        "    _coerce_batch_out(3)\n"
+        "except TypeError:\n"
+        "    pass\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('pyarrow', 'pandas', 'PIL')]\n"
+        "print('ok', bad, 'jax' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", "[]", "False"]

@@ -24,6 +24,11 @@ RENAMES = {
     "jax_distributed": "torch_distributed",
     "wants_jax_distributed": "wants_torch_distributed",
 }
+# Paths are not names, so they are not in the map: the scratch roots
+# ``ray_tpu_*`` under the temp dir are the port's ``ray_tpu_torch_*``
+# (``core/config.tmp_root``), among them the trainer's and the tuner's
+# default results root, ``ray_tpu_torch_results``
+# (``tests/test_torch_tune.py`` checks the tuner's).
 
 #: Names with no torch meaning.
 JAX_ONLY = {
@@ -53,7 +58,7 @@ NOT_PORTED = {
 }
 
 PACKAGES = ["", "models", "ops", "parallel", "collective", "rllib", "train",
-            "serve", "util"]
+            "serve", "util", "data", "tune"]
 
 
 def _expected(names):

@@ -104,10 +104,21 @@ def test_runner_actors_hold_no_card(pair):
 
 @pytest.mark.parametrize("name", ["PPO", "DQN"])
 def test_as_trainable_is_refused_until_tune(name):
+    """``tune`` is ported, so the refusal is gone: ``as_trainable`` gives
+    a function trainable, as the JAX drivers' does, that reports each
+    iteration through ``ray_tpu_torch.tune`` (one PPO trial runs under
+    both packages in ``tests/test_torch_data_train.py``)."""
+    from ray_tpu import rllib as jrllib
+
     cls = getattr(rllib, name)
     cfg = getattr(rllib, name + "Config")()
-    with pytest.raises(NotImplementedError, match="tune"):
-        cls.as_trainable(cfg)
+    fn = cls.as_trainable(cfg, stop_iters=2)
+    jfn = getattr(jrllib, name).as_trainable(
+        getattr(jrllib, name + "Config")(), stop_iters=2)
+    assert callable(fn)
+    assert fn.__qualname__ == jfn.__qualname__ == (
+        f"{name}.as_trainable.<locals>.trainable")
+    assert "ray_tpu_torch" in fn.__code__.co_names
 
 
 def test_configs_take_a_device_and_initial_weights():

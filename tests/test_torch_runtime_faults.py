@@ -51,3 +51,13 @@ def test_list_state_kinds_match_jax(kind):
 def test_two_node_cluster_matches_jax(key):
     ref, got = _pair("cluster")
     assert got[key] == ref[key]
+
+
+def test_live_actor_survives_a_stalled_head():
+    """A head whose event loop stalls (its process starved on a loaded
+    host) reads no health acks meanwhile; the port's head then gives every
+    worker a fresh window, so a live actor is not killed for the head's
+    own silence.  The JAX head kills it (``ActorDiedError``), a fault this
+    port does not copy."""
+    out = sc.result(sc.run("stalled_head", "ray_tpu_torch"))
+    assert out == {"before": 1, "after": 2}

@@ -224,3 +224,40 @@ def test_dumps_by_value_keeps_the_package_by_reference(tmp_path):
     assert out.stdout.split() == ["1", "False", "ray_tpu_torch.serve.engine",
                                   "True"]
     assert len(_dumps_by_value(LLMServer)) < 200
+
+
+def test_replica_replaced_after_missed_probes_not_one():
+    """A live replica whose probe misses its 5-s deadline is kept until it
+    misses ``PROBE_MISSES`` passes in a row (an answer resets the count);
+    a failed probe (a dead actor) replaces it at once.  The JAX controller
+    replaces it at the first miss."""
+    import threading
+
+    from ray_tpu_torch.serve.controller import PROBE_MISSES, ServeController
+
+    ctl = object.__new__(ServeController._cls)
+    spec = {"version": 1, "num_replicas": 2}
+    ctl.targets = {"a": spec}
+    ctl.replicas = {"a": [{"handle": "h1", "id": 1, "version": 1},
+                          {"handle": "h2", "id": 2, "version": 1}]}
+    ctl.pending = {"a": []}
+    ctl._lock = threading.Lock()
+    ctl._version = 0
+    stopped = []
+    probes = iter([[None, True], [True, None], [None, None], [None, None],
+                   [False, None]])
+    ctl._alive_many = lambda reps: next(probes)[:len(reps)]
+    ctl._collect_started = lambda name, spec_: []
+    ctl._target_replicas = lambda name: 2
+    ctl._autoscale = lambda *a: None
+    ctl._start_replica = lambda name, spec_: {"handle": "new", "id": 9,
+                                              "version": 1}
+    ctl._stop_replica = lambda r: stopped.append(r["id"])
+    for _ in range(PROBE_MISSES + 1):
+        ctl._reconcile("a", spec)
+    # Replica 1 missed passes 1, 3, 4 (an answer between): kept until the
+    # third miss in a row would come; replica 2 missed passes 2-4.
+    assert PROBE_MISSES == 3
+    assert stopped == [2]
+    ctl._reconcile("a", spec)  # replica 1's probe fails: dead, replaced
+    assert stopped == [2, 1]

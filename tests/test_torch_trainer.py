@@ -314,12 +314,70 @@ def test_scaling_config_asks_for_gpus():
 
 
 def test_refusals():
-    """``datasets=`` waits for the data/ port; a mesh must cover the gang,
-    one position a worker."""
-    with pytest.raises(NotImplementedError, match="data/"):
-        ttrain.TorchTrainer(lambda: None, datasets={"train": [1, 2]})
+    """``datasets=`` is taken now that data/ is ported: each worker gets
+    its shard as the JAX trainer gives it (a list split round-robin, any
+    other object replicated; a Dataset's ``streaming_split`` is driven in
+    ``tests/test_torch_data_train.py``).  A mesh must cover the gang, one
+    position a worker."""
+    kw = dict(datasets={"train": list(range(7)), "cfg": {"a": 1}},
+              scaling_config=None)
+    for n in (None, 3):
+        sc_t = ttrain.ScalingConfig(num_workers=2, use_gpu=False)
+        sc_j = jtrain.ScalingConfig(num_workers=2)
+        got = ttrain.TorchTrainer(lambda: None, **dict(
+            kw, scaling_config=sc_t))._make_dataset_shards(n)
+        want = jtrain.JaxTrainer(lambda: None, **dict(
+            kw, scaling_config=sc_j))._make_dataset_shards(n)
+        assert got == want and len(got) == (n or 2)
+    assert ttrain.TorchTrainer(lambda: None)._make_dataset_shards() is None
     with pytest.raises(ValueError, match="cover"):
         ttrain.TorchTrainer(lambda: None, scaling_config=ttrain.ScalingConfig(
             num_workers=2, mesh=MeshConfig(fsdp=4)))
     ttrain.TorchTrainer(lambda: None, scaling_config=ttrain.ScalingConfig(
         num_workers=4, mesh=MeshConfig(fsdp=2, tp=2)))
+
+
+def test_merge_checkpoints_matches_jax(tmp_path):
+    """The port merges the ranks' staged checkpoint dirs by hard links
+    where the JAX trainer copies: the merged tree reads the same (rank 0
+    wins a collision), and the staged files are left as they were."""
+    import pathlib
+
+    dirs = []
+    for r in range(2):
+        d = tmp_path / f"rank{r}"
+        (d / "sub").mkdir(parents=True)
+        (d / "shared").write_text(f"rank {r}")
+        (d / f"own{r}").write_text(str(r))
+        (d / "sub" / "x").write_text(f"x{r}")
+        dirs.append(str(d))
+
+    def read(root):
+        return {str(p.relative_to(root)): p.read_text()
+                for p in pathlib.Path(root).rglob("*") if p.is_file()}
+
+    got = ttrain.TorchTrainer._merge_checkpoints(dirs)
+    want = jtrain.JaxTrainer._merge_checkpoints(dirs)
+    assert read(got) == read(want)
+    assert read(got)["shared"] == "rank 0" and read(got)["sub/x"] == "x0"
+    assert read(dirs[1]) == {"shared": "rank 1", "own1": "1", "sub/x": "x1"}
+
+
+def test_register_links_only_when_told(tmp_path):
+    """``CheckpointManager.register`` copies a checkpoint (a caller may
+    write its directory again), as the JAX manager does; with
+    ``link=True`` (the trainer's private merged copy) it hard-links the
+    files, and what it persists reads the same either way."""
+    src = tmp_path / "merged"
+    src.mkdir()
+    (src / "state").write_bytes(b"\x00\x01" * 1000)
+    mgr = ttrain.checkpoint.CheckpointManager(str(tmp_path / "store"))
+    copied = mgr.register(ttrain.Checkpoint(str(src)), {"step": 1})
+    linked = mgr.register(ttrain.Checkpoint(str(src)), {"step": 2},
+                          link=True)
+    ino = os.stat(src / "state").st_ino
+    for ck in (copied, linked):
+        with open(os.path.join(ck.path, "state"), "rb") as f:
+            assert f.read() == b"\x00\x01" * 1000
+    assert os.stat(os.path.join(copied.path, "state")).st_ino != ino
+    assert os.stat(os.path.join(linked.path, "state")).st_ino == ino
