@@ -74,31 +74,62 @@ no result line):
    prompt served alone from the cache and cold.  K1 is timed at a suffix
    shape (Sq 64, Sk 576, q_offset 384) beside the plain version and SDPA
    with an explicit boolean mask.
-11. runtime: the port's runtime core on the card.  ``rt.init(num_cpus=4)``
-   in this process (the object store sized to half of ``/dev/shm``'s free
-   space, at most 4 GiB) must autodetect ``GPU: 1``.  An ungranted task
-   sees ``CUDA_VISIBLE_DEVICES=""`` and its ``resolve_device()`` raises.
-   Layer 0 of the 8B model (a CPU ``Block``, 218.1 M parameters, 436 MB
-   of bf16) and a seeded [1, 2048, 4096] activation go through ``put``; a
-   ``num_gpus=1`` task gets both by ``ObjectRef``, runs ``_block`` on the
-   card (K1 once, K4 twice) and returns a CUDA tensor, whose ``get`` must
-   be a CPU tensor bit-identical to ``_block`` run here (put and get GB/s
-   printed).  The serve phase's 12 prompts are served greedily one at a
-   time in process, then by a ``num_gpus=1`` actor that builds the same
-   8B weights from the seed (fp64 checksums equal to this process's) and
-   an engine of the serve phase's config: tokens equal token for token.
-   Both sides then serve the prompts once more, by one function in each
-   process (1 token each), and report the engine's own TTFT split into
-   its queue wait and its prefill, for the first pass (the actor's
-   process is cold) and the warm one; the first token through an actor
-   call, and the task and actor round trips.  The actor's step records
-   (17 fields), spans and devmem pools must reach the head's
-   ``list_state``.  While the actor holds the card a second ``num_gpus=1``
-   task stays pending, and runs on the card once the actor is killed.
-   ``nvidia-smi`` may list no more compute processes than this one and the
-   granted workers; in a container whose ``nvidia-smi`` reports pids of
-   another namespace that is a count only, since those pids cannot be
-   told apart (the ungranted probe is what proves isolation).
+11. runtime: the port's runtime core and its libraries on the card.
+   ``rt.init(num_cpus=4, include_dashboard=True)`` in this process (the object
+   store sized to half of ``/dev/shm``'s free space, at most 4 GiB) must
+   autodetect ``GPU: 1``.  An ungranted task sees ``CUDA_VISIBLE_DEVICES=""``
+   and its ``resolve_device()`` raises. Layer 0 of the 8B model (a CPU
+   ``Block``, 218.1 M parameters, 436 MB of bf16) and a seeded [1, 2048, 4096]
+   activation go through ``put``; a ``num_gpus=1`` task gets both by
+   ``ObjectRef``, runs ``_block`` on the card (K1 once, K4 twice) and returns
+   a CUDA tensor, whose ``get`` must be a CPU tensor bit-identical to
+   ``_block`` run here (put and get GB/s printed).  The serve phase's 12
+   prompts are served greedily one at a time in process, then by a
+   ``num_gpus=1`` actor that builds the same 8B weights from the seed (fp64
+   checksums equal to this process's) and an engine of the serve phase's
+   config: tokens equal token for token. Both sides then serve the prompts
+   once more, by one function in each process (1 token each), and report the
+   engine's own TTFT split into its queue wait and its prefill, for the first
+   pass (the actor's process is cold) and the warm one; the first token
+   through an actor call, and the task and actor round trips.  The actor's
+   step records (17 fields), spans and devmem pools must reach the head's
+   ``list_state``.  The actor's start is printed by stage (spawn to its first
+   line, ``import torch`` and the OS threads it leaves, the CUDA context, the
+   8B build, the engine).  Then, while the actor holds the card: the 12
+   prompts through actor calls (8 greedy tokens each, as on the DAG, timed);
+   (a) a compiled DAG ``encode -> greedy -> collect`` (the actor is
+   ``enable_compiled_dags``; the outer stages are CPU actors granted no card,
+   a token list to an int64 tensor and back) serves the 12 prompts one
+   ``execute`` at a time, then pipelined through ``execute_async`` (submitted
+   from a thread, results taken in order), each equal token for token to the
+   in-process engine's; a prompt longer than ``max_prompt_len`` raises the
+   engine's ``ValueError`` at ``execute`` and the next execution serves; a
+   three-stage no-op DAG's round trip is printed beside three chained actor
+   calls; after ``teardown()`` the actor answers a call and no CPU stage
+   initialised CUDA; (b) during the pipelined pass ``python -m ray_tpu_torch``
+   in subprocesses: ``status`` shows ``GPU: 1/1 used``, ``list actors`` the
+   engine actor ALIVE, ``stack`` its thread in the DAG exec loop, and
+   ``profile --seconds 3`` replies and writes its trace, whose kernels must
+   include K1's and K4's (up to three windows; "not measured" if CUPTI records
+   none); (c) the dashboard's ``/api/status`` shows the card held (GPU 0
+   available of 1) and ``/metrics`` the engine's ``ray_tpu_gen_tokens_total``.
+   While the actor holds the card a second ``num_gpus=1`` task stays pending,
+   and runs on the card once the actor is killed. ``nvidia-smi`` may list no
+   more compute processes than this one and the granted workers; in a
+   container whose ``nvidia-smi`` reports pids of another namespace that is a
+   count only, since those pids cannot be told apart (the ungranted probe is
+   what proves isolation).  Then (d) a durable workflow ``act -> layer ->
+   digest`` (the seeded activation; ``_rt_block_task`` submitted with
+   ``num_gpus=1`` from inside the ``layer`` step on layer 0 from the object
+   store; a digest that fails its first attempt): the first ``workflow.run``
+   raises, a second run of the same ``workflow_id`` loads ``layer`` from
+   storage, so the GPU task runs once in all (a KV counter), and the digest
+   equals ``_block`` here bit for bit; (e) a job: ``JobSubmissionClient`` runs
+   ``python job_entry.py``, which joins the cluster and runs K4 in a
+   ``num_gpus=1`` task on a seeded [2048, 4096] bf16 input; it must end
+   SUCCEEDED with its result line in its logs, the output equal to K4 here bit
+   for bit, one K4 launch, the job listed by ``/api/jobs`` and the card free
+   again in ``/api/status``.  Each of these paths prints its seconds.
 12. serve front: the port's serving front on the card, with its own
    ``rt.init(num_cpus=4)`` (the GPU count from NVML).  (a) The b1 app
    through ``serve.run(serve.llm_app(model="b1", engine=dict(
@@ -214,15 +245,19 @@ no result line):
    {"lr": grid_search([1e-4, 3e-4])}}, tune_config=TuneConfig(
    metric="loss", mode="min"))``: each trial's one worker, granted the
    card, builds full Llama-3-8B (not cut) from the train phase's seed and
-   takes 3 AdamW steps at B=1, S=2048, one batch a step from its shard
+   takes 4 AdamW steps at B=1, S=2048, one batch a step from its shard
    (``iter_batches(batch_size=1, device="cuda")``; ``ds`` holds the
-   train phase's tokens, then two seeded rows).  Both trials must end
+   train phase's tokens, then three seeded rows).  Both trials must end
    TERMINATED, each worker granted the card, each first loss equal bit
    for bit to the train gang's, the step-2 losses differing (the lr
    reached the loop), ``get_best_result()`` naming the trial with the
-   lower final loss, and each worker's launches exactly 3 steps' worth;
-   each trial's median step is printed beside the train phase's, with
-   the session's data wait a round.
+   lower final loss, and each worker's launches exactly 4 steps' worth;
+   each trial's median step after two warm steps (as the train phase
+   times its steps) at most 1.5x the train phase's, printed beside it
+   with every step's time, the session's data wait a round and each
+   step's host numbers (the loop thread's CPU time, garbage collection,
+   the allocator's retries and new segments, other processes' CPU time;
+   the train gang prints them too).
 21. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
    no card (``device="cpu"``), every learner in this process on the card.
    (a) ``PPO`` on CartPole at ``PPOConfig``'s defaults, 3 iterations,
@@ -263,12 +298,17 @@ remat policy's, the moe, the rllib and the rllib drivers' paths run and
 read just after (the rllib paths launch none of the csrc kernels).  The
 train gang's worker zeroes its own process's counts before its first
 step and reports them with its last: six steps' worth; each data-tune
-trial's worker does the same, three steps' worth, and the path's count is
+trial's worker does the same, four steps' worth, and the path's count is
 the two trials' sum.  On the runtime path the
 GPU task and the engine actor zero their own process's counters just
 before their main path and return them after it: the task must launch K1
-once and K4 twice, the actor K1 and K4's forward.  On the serve-front
-path each replica reads its own process's counts through a method of
+once and K4 twice, the actor K1 and K4's forward.  The runtime phase's
+library paths count in their own processes too: the engine actor zeroes
+its counts before the compiled DAG is compiled and reads them after its
+teardown (the dag path: K1 and K4's forward, never K2, K3 or K4's
+backward), the workflow's GPU task reads its own (K1 once, K4 twice) and
+the job's task reports its own (K4 once).  On the serve-front path each
+replica reads its own process's counts through a method of
 its deployment (``stats()["kernel_launches"]``) just before the main
 path and just after it (the b1 replica is fresh, its counts 0); the
 replicas together must launch K1 and K4's forward, and never K2, K3 or
@@ -1786,20 +1826,56 @@ def _rt_probe_task():
             "resolve_device": dev}
 
 
-class _RtEngineActor:
-    """An 8B ``InferenceEngine`` in its own process on a granted card."""
+def _os_threads() -> int:
+    """This process's OS threads (a fork copies only the caller's)."""
+    return len(os.listdir("/proc/self/task"))
 
-    def __init__(self, seed: int, ecfg: dict):
+
+#: New tokens a request on the compiled DAG's engine stage (``greedy``)
+#: and on the actor-call pass it is compared with: a request at B=1 costs
+#: about 45 ms a token on the host-bound engine, so three passes of 12 x 32
+#: tokens would take a minute.
+_DAG_NEW = 8
+
+
+class _RtEngineActor:
+    """An 8B ``InferenceEngine`` in its own process on a granted card.  Its
+    start is timed by stage from ``t_submit`` (the driver's wall clock at
+    ``.remote()``): spawn to this method's first line, ``import torch``
+    (and the OS threads it leaves), the CUDA context, the 8B build and the
+    engine's.  ``greedy`` is its compiled-DAG step."""
+
+    def __init__(self, seed: int, ecfg: dict, t_submit: float = None):
+        t_first = time.time()
+        preloaded = "torch" in sys.modules
+        threads_before = _os_threads()
         import torch
 
+        t_torch = time.time()
+        threads_torch = _os_threads()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t_cuda = time.time()
         from ray_tpu_torch.models.llama import LlamaConfig, llama_init
         from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
 
         self.cfg = LlamaConfig.llama3_8b()
         gen = torch.Generator(device="cuda").manual_seed(seed)
         self.params = llama_init(self.cfg, gen)
+        torch.cuda.synchronize()
+        t_build = time.time()
         self.engine = InferenceEngine(self.cfg, self.params,
                                       EngineConfig(**ecfg), seed=seed)
+        t_engine = time.time()
+        self.start = {
+            "spawn_to_first_line_s": (t_first - t_submit
+                                      if t_submit is not None else None),
+            "import_torch_s": t_torch - t_first,
+            "cuda_context_s": t_cuda - t_torch,
+            "build_8b_s": t_build - t_cuda, "engine_s": t_engine - t_build,
+            "torch_preloaded": preloaded,
+            "os_threads_before_torch": threads_before,
+            "os_threads_after_torch": threads_torch}
 
     def info(self):
         import torch
@@ -1807,7 +1883,17 @@ class _RtEngineActor:
         return {"pid": os.getpid(), "engine_id": self.engine.engine_id,
                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "device": torch.cuda.get_device_name(0),
-                "count": torch.cuda.device_count()}
+                "count": torch.cuda.device_count(), "start": self.start}
+
+    def greedy(self, prompt):
+        """The compiled DAG's engine stage: a prompt as an int64 tensor in,
+        its ``_DAG_NEW`` greedy tokens out as an int64 tensor on the card
+        (it crosses the edge as a CPU tensor)."""
+        import torch
+
+        stream = self.engine.submit(prompt.tolist(), max_new_tokens=_DAG_NEW)
+        return torch.tensor(list(stream), dtype=torch.int64,
+                            device=self.engine.device)
 
     def checksums(self):
         return _rt_checksums(self.params)
@@ -1837,6 +1923,37 @@ class _RtEngineActor:
 
     def ping(self):
         return 0
+
+
+class _DagEncode:
+    """The compiled DAG's first stage, a CPU actor granted no card: a
+    prompt's token list to an int64 tensor."""
+
+    def run(self, prompt):
+        import torch
+
+        return torch.tensor(prompt, dtype=torch.int64)
+
+    def cuda_initialized(self):
+        import torch
+
+        return torch.cuda.is_initialized()
+
+
+class _DagCollect(_DagEncode):
+    """The last stage, a CPU actor granted no card: the tokens' tensor (a
+    CPU tensor after the edge) to a list."""
+
+    def run(self, tokens):
+        return tokens.tolist()
+
+
+class _DagNoop:
+    """A CPU stage that passes its value on: three of them time a compiled
+    DAG's round trip against three chained actor calls."""
+
+    def ident(self, x):
+        return x
 
 
 def _rt_serve(engine, prompts, new: int):
@@ -1892,6 +2009,524 @@ def _rt_state(rt, kind):
     return ctx.client.call("list_state", {"kind": kind})["items"]
 
 
+def _digest(bits):
+    """bf16 values given as their int16 bits (numpy): the bytes' SHA-256
+    and the values' fp64 sum.  Equal digests are equal bits; numpy alone,
+    so a workflow step digests without importing torch."""
+    import hashlib
+
+    bits = np.ascontiguousarray(bits)
+    vals = (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return {"sha256": hashlib.sha256(bits.tobytes()).hexdigest(),
+            "fp64_sum": float(vals.astype(np.float64).sum())}
+
+
+def _bf16_bits(a):
+    """fp32 numpy values rounded to bf16 (to nearest, ties to even), as
+    int16 bits."""
+    u = a.astype(np.float32).view(np.uint32)
+    u = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    return (u >> np.uint32(16)).astype(np.uint16).view(np.int16)
+
+
+def _cli(*argv, timeout: float = 120.0):
+    """``python -m ray_tpu_torch`` against this process's cluster:
+    (returncode, stdout, stderr)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "--address",
+         os.environ["RT_TORCH_ADDRESS"], *argv], cwd=root, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    return p.returncode, p.stdout, p.stderr
+
+
+def _trace_kernels(path: str):
+    """{kernel name: events} of the Chrome trace at ``path``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def _runtime_cli(wid: str, log_dir: str, res: dict):
+    """The CLI against the live cluster while the DAG serves: ``status``,
+    ``list actors``, ``stack`` and ``profile`` of the engine actor's
+    worker, each in a subprocess.  A profile window in which CUPTI
+    recorded no kernel is taken again, up to three windows; each
+    window's start is ``res["window_t0"]`` (``time.perf_counter``).  The
+    other three commands run beside the profile.  Fills ``res``."""
+    t = time.perf_counter()
+
+    def others():
+        for name, argv in (("status", ("status",)),
+                           ("list_actors", ("list", "actors")),
+                           ("stack", ("stack", wid))):
+            rc, so, se = _cli(*argv)
+            res[name] = {"rc": rc, "stdout": so, "stderr": se[-2000:]}
+
+    side = threading.Thread(target=others, daemon=True)
+    side.start()
+    for attempt in range(1, 4):
+        dir_a = os.path.join(log_dir, str(attempt))
+        res["window_t0"] = time.perf_counter()
+        rc, so, se = _cli("profile", wid, "--seconds", "3", "--logdir",
+                          dir_a)
+        traces = glob.glob(f"{dir_a}/*.pt.trace.json")
+        res["profile"] = {"rc": rc, "windows": attempt, "stdout": so,
+                          "stderr": se[-2000:], "traces": len(traces)}
+        if rc != 0 or len(traces) != 1:
+            break
+        kernels = _trace_kernels(traces[0])
+        res["profile"]["kernels"] = sum(kernels.values())
+        res["profile"]["by_kind"] = {}
+        for name, n in kernels.items():
+            kind = _kind_of(name)
+            res["profile"]["by_kind"][kind] = res["profile"]["by_kind"].get(
+                kind, 0) + n
+        if kernels:
+            break
+    res["profile_s"] = time.perf_counter() - t
+    side.join(timeout=300)
+    res["cli_s"] = time.perf_counter() - t
+
+
+def _dash_get(path: str):
+    import urllib.request
+
+    from ray_tpu_torch.core.context import ctx
+
+    with urllib.request.urlopen(ctx.dashboard.url + path,
+                                timeout=30) as resp:
+        return resp.read()
+
+
+def _runtime_dag(rt, actor, info, prompts, expect, actor_pass_s: float,
+                 dag_stages, stages_cuda):
+    """(a) A compiled DAG ``encode -> greedy -> collect`` through the 8B
+    engine actor: the 12 prompts one ``execute`` at a time, then pipelined
+    with ``execute_async`` (a submitter thread: the channels hold at most
+    seven executions, so the eighth write waits for the first result);
+    results in submission order equal to ``expect``; an oversize prompt
+    raises the engine's ``ValueError`` and the DAG serves on; a no-op
+    three-stage DAG's round trip beside three chained actor calls.  (b)
+    The CLI in subprocesses during the pipelined pass.  (c) The dashboard
+    while the actor holds the card.  ``dag_stages`` are the encode and
+    collect actors and ``stages_cuda`` their pending ``cuda_initialized``
+    calls.  Returns the path's numbers; launches are the actor's own."""
+    import queue
+
+    from ray_tpu_torch.dag import InputNode, enable_compiled_dags
+
+    res = {}
+    noop = enable_compiled_dags(rt.remote(_DagNoop))
+    stages = [noop.remote() for _ in range(3)]
+    with InputNode() as inp:
+        node = stages[2].ident.bind(stages[1].ident.bind(
+            stages[0].ident.bind(inp)))
+    g = node.experimental_compile()
+    try:
+        for i in range(10):
+            check(g.execute(i) == i, "the no-op DAG changed its value")
+        hops = []
+        for i in range(100):
+            t = time.perf_counter()
+            g.execute(i)
+            hops.append(time.perf_counter() - t)
+    finally:
+        g.teardown()
+    # Three chained actor calls, each awaited before the next; and five
+    # chains that pass each call's ObjectRef on to the next call.
+    chained, by_ref = [], []
+    for i in range(100):
+        t = time.perf_counter()
+        v = rt.get(stages[2].ident.remote(rt.get(stages[1].ident.remote(
+            rt.get(stages[0].ident.remote(i))))))
+        chained.append(time.perf_counter() - t)
+        check(v == i, "the chained calls changed their value")
+    for i in range(5):
+        t = time.perf_counter()
+        v = rt.get(stages[2].ident.remote(stages[1].ident.remote(
+            stages[0].ident.remote(i))))
+        by_ref.append(time.perf_counter() - t)
+        check(v == i, "the chained calls changed their value")
+    res["noop_dag_p50_ms"] = _rt_p50(hops) * 1e3
+    res["chained_calls_p50_ms"] = _rt_p50(chained) * 1e3
+    res["chained_refs_p50_ms"] = _rt_p50(by_ref) * 1e3
+
+    # The CPU stages, started with the engine actor (``stages_cuda``: each
+    # one's first answer, after its import of torch).
+    enc, col = dag_stages
+    check(rt.get(stages_cuda, timeout=300) == [False, False],
+          "a CPU stage of the DAG initialised CUDA")
+    rt.get(actor.reset_counts.remote())
+    with InputNode() as inp:
+        node = col.run.bind(actor.greedy.bind(enc.run.bind(inp)))
+    g = node.experimental_compile()
+    cli = {}
+    try:
+        t = time.perf_counter()
+        seq = [g.execute(p, timeout=300) for p in prompts]
+        res["sequential_s"] = time.perf_counter() - t
+        bad = [i for i, (a, b) in enumerate(zip(seq, expect)) if a != b]
+        check(not bad, f"the DAG's sequential pass differs from the "
+                       f"in-process engine's greedy tokens on {bad}")
+
+        workers = _rt_state(rt, "workers")
+        wid = next(w["worker_id"] for w in workers
+                   if w.get("pid") == info["pid"])
+        log_dir = tempfile.mkdtemp(prefix="runtime_profile_")
+        cli_thread = threading.Thread(target=_runtime_cli,
+                                      args=(wid, log_dir, cli), daemon=True)
+        futs: "queue.Queue" = queue.Queue()
+
+        def submit():
+            for p in prompts:
+                futs.put(g.execute_async(p, timeout=300))
+
+        submitter = threading.Thread(target=submit, daemon=True)
+        t = time.perf_counter()
+        submitter.start()
+        cli_thread.start()
+        piped = [futs.get(timeout=300).result(timeout=300)
+                 for _ in prompts]
+        res["pipelined_s"] = time.perf_counter() - t
+        submitter.join(timeout=60)
+        check(piped == expect, "the DAG's pipelined pass differs from the "
+                               "in-process engine's greedy tokens")
+        # Keep the engine busy while a profile window may be open (the
+        # CLI's start, the 3-s window and a margin), then let the actor
+        # export its trace alone.
+        extra = 0
+        while cli_thread.is_alive():
+            if time.perf_counter() > cli.get("window_t0", 0.0) + 8.0:
+                time.sleep(0.05)
+                continue
+            i = extra % len(prompts)
+            check(g.execute(prompts[i], timeout=300) == expect[i],
+                  "an extra DAG execution differs from the in-process "
+                  "engine's greedy tokens")
+            extra += 1
+        cli_thread.join()
+        res["extra_executions"] = extra
+        long_prompt = [1] * 600
+        try:
+            g.execute(long_prompt, timeout=300)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "prompt length 600" in raised,
+              f"an oversize prompt through the DAG raised {raised!r}")
+        res["oversize_error"] = raised
+        check(g.execute(prompts[0], timeout=300) == expect[0],
+              "the DAG did not serve on after the oversize prompt")
+
+        # (c) The dashboard while the actor holds the card.
+        status = json.loads(_dash_get("/api/status"))
+        res["dashboard_status"] = {k: status[k] for k in (
+            "resources_total", "resources_available", "actors_alive")}
+        check(status["resources_total"].get("GPU") == 1
+              and status["resources_available"].get("GPU", 0) == 0,
+              f"/api/status while the actor holds the card: {status}")
+        deadline = time.time() + 30
+        metric = None
+        while time.time() < deadline and metric is None:
+            text = _dash_get("/metrics").decode()
+            metric = next((ln for ln in text.splitlines()
+                           if ln.startswith("ray_tpu_gen_tokens_total")
+                           and float(ln.rsplit(" ", 1)[1]) > 0), None)
+            if metric is None:
+                time.sleep(0.5)
+        check(metric is not None,
+              "/metrics holds no ray_tpu_gen_tokens_total sample")
+        res["dashboard_metric"] = metric
+    finally:
+        g.teardown()
+    counts = rt.get(actor.read_counts.remote(), timeout=60)
+    res["launches"] = counts
+    res["stages_cuda_initialized"] = [
+        rt.get(a.cuda_initialized.remote(), timeout=60) for a in (enc, col)]
+    check(res["stages_cuda_initialized"] == [False, False],
+          "a CPU stage of the DAG initialised CUDA")
+    for a in stages + [enc, col]:
+        rt.kill(a)
+    cpu_actors = {a._actor_id.hex() for a in stages + [enc, col]}
+    deadline = time.time() + 30
+    while time.time() < deadline and any(
+            a["actor_id"] in cpu_actors and a["state"] == "ALIVE"
+            for a in _rt_state(rt, "actors")):
+        time.sleep(0.2)
+    check(not any(a["actor_id"] in cpu_actors and a["state"] == "ALIVE"
+                  for a in _rt_state(rt, "actors")),
+          "the DAG's CPU actors outlived their kill")
+    check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
+          and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
+          == counts["rms_norm_bwd"] == 0,
+          f"the DAG path's launches in the actor: {counts}")
+
+    # (b) What the CLI read while the DAG served.
+    for name in ("status", "list_actors", "stack"):
+        check(cli.get(name, {}).get("rc") == 0,
+              f"the CLI's {name} failed: {cli.get(name)}")
+    check(re.search(r"GPU: 1/1 used", cli["status"]["stdout"]) is not None,
+          f"`status` does not show the card held: "
+          f"{cli['status']['stdout']}")
+    check(any("_RtEngineActor" in ln and "ALIVE" in ln
+              for ln in cli["list_actors"]["stdout"].splitlines()),
+          f"`list actors` does not show the engine actor ALIVE: "
+          f"{cli['list_actors']['stdout']}")
+    check("_dag_exec_loop" in cli["stack"]["stdout"],
+          "`stack` shows no thread in the DAG exec loop")
+    prof = cli["profile"]
+    check(prof["rc"] == 0 and "trace dir:" in prof["stdout"]
+          and prof["traces"] == 1, f"`profile` failed: {prof}")
+    kinds = prof.get("by_kind", {})
+    if prof.get("kernels"):
+        check(kinds.get("K1 flash_fwd", 0) > 0 and kinds.get(
+            "K4 rms_norm (forward and backward)", 0) > 0,
+            f"the profile's kernels hold no K1 or K4: {kinds}")
+    res["cli"] = {"profile_windows": prof["windows"],
+                  "profile_kernels": prof.get("kernels", 0),
+                  "profile_by_kind": kinds, "profile_s": cli["profile_s"],
+                  "cli_s": cli["cli_s"]}
+    tokens = len(prompts) * _DAG_NEW
+    res.update(tokens=tokens, actor_pass_s=actor_pass_s,
+               tok_s={"actor_calls": tokens / actor_pass_s,
+                      "dag_sequential": tokens / res["sequential_s"],
+                      "dag_pipelined": tokens / res["pipelined_s"]})
+    print(f"[runtime] compiled DAG encode -> greedy -> collect through the "
+          f"8B engine actor: {len(prompts)} requests x {_DAG_NEW} tokens "
+          f"equal to the in-process engine's, one at a time in "
+          f"{res['sequential_s']:.2f} s and pipelined in "
+          f"{res['pipelined_s']:.2f} s (tokens/s: actor calls "
+          f"{res['tok_s']['actor_calls']:.1f}, DAG sequential "
+          f"{res['tok_s']['dag_sequential']:.1f}, DAG pipelined "
+          f"{res['tok_s']['dag_pipelined']:.1f}); oversize prompt: "
+          f"ValueError, then served on; a no-op three-stage DAG round trip "
+          f"{res['noop_dag_p50_ms']:.3f} ms against three chained actor "
+          f"calls {res['chained_calls_p50_ms']:.3f} ms (p50 of 100; "
+          f"passing each ObjectRef on, {res['chained_refs_p50_ms']:.1f} ms, "
+          f"p50 of 5); "
+          f"launches {counts}", flush=True)
+    what = (f"{prof['kernels']} kernels in window {prof['windows']}, by "
+            f"kind {kinds}" if prof.get("kernels") else
+            "CUPTI recorded no device activity in three windows: the "
+            "kernels are not measured")
+    print(f"[runtime] CLI during the pipelined pass: status shows GPU 1/1 "
+          f"used, list actors shows the engine actor ALIVE, stack shows "
+          f"the DAG exec loop, profile wrote its trace ({what}); "
+          f"dashboard: GPU total {status['resources_total'].get('GPU')}, "
+          f"available {status['resources_available'].get('GPU', 0)}; "
+          f"{metric}", flush=True)
+    return res
+
+
+def _wf_act(seed: int, d_model: int):
+    """The workflow's first step: a seeded [1, 2048, d_model] bf16
+    activation, as int16 bits in numpy.  The workflow's CPU steps run on
+    pooled workers; in numpy none of them imports torch (about 8 s a fresh
+    worker on the card's host)."""
+    rng = np.random.default_rng(seed)
+    return _bf16_bits(rng.standard_normal((1, 2048, d_model),
+                                          dtype=np.float32))
+
+
+def _wf_block_task(cfg, layer, bits):
+    """The workflow's GPU task: ``_rt_block_task`` on the activation's bits;
+    the output goes back as int16 bits too."""
+    import torch
+
+    x = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    out, counts, visible, _ = _rt_block_task(cfg, layer, x)
+    return out.cpu().view(torch.int16).numpy(), counts, visible
+
+
+def _wf_layer(bits, refs):
+    """The workflow's GPU step: a plain task that submits the block task
+    with ``num_gpus=1`` on layer 0 from the object store (``refs`` holds the
+    config's and the layer's ``ObjectRef``: boxed, they reach the GPU task
+    unread, so this step loads no torch), and counts its runs in the
+    cluster KV."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.context import ctx
+
+    task = rt.remote(num_gpus=1)(_wf_block_task)
+    out, counts, visible = rt.get(task.remote(refs[0], refs[1], bits),
+                                  timeout=600)
+    runs = int(ctx.client.kv_get("chip_smoke:wf_gpu_runs") or b"0") + 1
+    ctx.client.kv_put("chip_smoke:wf_gpu_runs", str(runs).encode())
+    return {"out": out, "launches": counts, "visible": visible}
+
+
+def _wf_digest(layer_out, marker: str):
+    """The workflow's last step; its first attempt fails (``marker``)."""
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("the digest step fails on its first attempt")
+    return dict(_digest(layer_out["out"]), launches=layer_out["launches"],
+                visible=layer_out["visible"])
+
+
+def _runtime_workflow(torch, rt, cfg, params, seed: int, layer_ref):
+    """(d) ``act -> layer -> digest`` as a durable workflow: the first run
+    fails at ``digest``; a second run of the same ``workflow_id`` loads
+    ``layer`` from storage, so its GPU task runs once in all; the digest
+    equals ``_block`` in this process bit for bit."""
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.core.context import ctx
+    from ray_tpu_torch.models.llama import _block
+    from ray_tpu_torch.ops.rotary import rope_frequencies
+
+    dev = params.layers[0].attn.wq.device
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=dev)
+    x = torch.from_numpy(_wf_act(seed, cfg.d_model)).view(torch.bfloat16)
+    with torch.no_grad():
+        ref = _block(cfg, x.to(dev), params.layers[0], cos, sin)
+    expect = _digest(ref.cpu().view(torch.int16).numpy())
+    del x, ref
+    store = tempfile.mkdtemp(prefix="runtime_workflow_")
+    marker = os.path.join(store, "digest_failed_once")
+    ctx.client.kv_del("chip_smoke:wf_gpu_runs")
+    act = workflow.step(_wf_act)(seed, cfg.d_model)
+    out = workflow.step(_wf_layer)(act, [rt.put(cfg), layer_ref])
+    node = workflow.step(_wf_digest)(out, marker)
+    t = time.perf_counter()
+    try:
+        workflow.run(node, workflow_id="runtime-layer", storage=store)
+        first = None
+    except Exception as e:  # noqa: BLE001: the step's error, as a TaskError
+        first = f"{type(e).__name__}: {e}"
+    first_s = time.perf_counter() - t
+    check(first is not None and "first attempt" in first,
+          f"the workflow's first run did not fail at digest: {first!r}")
+    t = time.perf_counter()
+    got = workflow.run(node, workflow_id="runtime-layer", storage=store)
+    resume_s = time.perf_counter() - t
+    runs = int(ctx.client.kv_get("chip_smoke:wf_gpu_runs") or b"0")
+    res = {"first_run_s": first_s, "resume_s": resume_s, "gpu_runs": runs,
+           "launches": got["launches"], "visible": got["visible"],
+           "bit_identical": got["sha256"] == expect["sha256"],
+           "fp64_sum": got["fp64_sum"]}
+    print(f"[runtime] workflow act -> layer -> digest: the first run failed "
+          f"at digest in {first_s:.2f} s, the resumed run loaded layer "
+          f"from storage and finished in {resume_s:.2f} s; the GPU task "
+          f"ran {runs} time(s) (CUDA_VISIBLE_DEVICES={got['visible']!r}, "
+          f"launches {got['launches']}); digest bit-identical to this "
+          f"process's _block: {res['bit_identical']}", flush=True)
+    check(runs == 1, f"the workflow's GPU task ran {runs} times")
+    check(got["visible"] == "0", f"the GPU task saw {got['visible']!r}")
+    check(res["bit_identical"] and got["fp64_sum"] == expect["fp64_sum"],
+          f"the workflow's digest {got} differs from _block's {expect}")
+    check(got["launches"]["flash_fwd"] == 1
+          and got["launches"]["rms_norm"] == 2
+          and sum(got["launches"].values()) == 3,
+          f"the workflow's GPU task did not launch K1 once and K4 twice: "
+          f"{got['launches']}")
+    shutil.rmtree(store, ignore_errors=True)
+    return res
+
+
+def _job_k4(seed: int, d: int):
+    """K4 on a seeded [2048, d] bf16 input on the card: the output's digest
+    and every kernel's launches in this call (the job's GPU task, and the
+    reference in the driver)."""
+    import torch
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.ops import norms
+
+    dev = resolve_device()
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((2048, d), generator=gen).to(torch.bfloat16).to(dev)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen)).to(torch.bfloat16).to(
+        dev)
+    before = {k: f.launches for k, f in _counters().items()}
+    y = norms.rms_norm_cuda(x, w)
+    torch.cuda.synchronize()
+    return dict(_digest(y.cpu().view(torch.int16).numpy()),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                launches={k: f.launches - before[k]
+                          for k, f in _counters().items()})
+
+
+_JOB_MAIN = """
+
+if __name__ == "__main__":
+    import json
+    import ray_tpu_torch as rt
+
+    rt.init()
+    out = rt.get(rt.remote(num_gpus=1)(_job_k4).remote({seed}, {d}),
+                 timeout=600)
+    print("JOB_RESULT " + json.dumps(out), flush=True)
+    rt.shutdown()
+"""
+
+
+def _runtime_job(rt, seed: int, d: int):
+    """(e) A job: ``JobSubmissionClient`` runs ``python job_entry.py``,
+    which joins the cluster and runs K4 in a ``num_gpus=1`` task; it must
+    end SUCCEEDED with its result line in its logs, K4's output equal to
+    K4 in this process bit for bit and one K4 launch; ``/api/jobs`` lists
+    it and ``/api/status`` shows the card free again."""
+    import inspect
+
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    tmp = tempfile.mkdtemp(prefix="runtime_job_")
+    entry = os.path.join(tmp, "job_entry.py")
+    with open(entry, "w") as f:
+        f.write("import os\n\nimport numpy as np\n\n\n" + "\n\n".join(
+            inspect.getsource(fn) for fn in (_counters, _digest, _job_k4))
+            + _JOB_MAIN.format(seed=seed, d=d))
+    root = os.path.dirname(os.path.abspath(__file__))
+    client = JobSubmissionClient()
+    t = time.perf_counter()
+    job_id = client.submit_job(entrypoint=f"{sys.executable} {entry}",
+                               env_vars={"PYTHONPATH": root})
+    status = client.wait_until_finished(job_id, timeout=600)
+    wall = time.perf_counter() - t
+    logs = client.get_job_logs(job_id)
+    line = next((ln for ln in logs.splitlines()
+                 if ln.startswith("JOB_RESULT ")), None)
+    check(status == "SUCCEEDED" and line is not None,
+          f"the job ended {status}; its logs:\n{logs[-3000:]}")
+    got = json.loads(line.split(" ", 1)[1])
+    ref = _job_k4(seed, d)
+    jobs = json.loads(_dash_get("/api/jobs"))["items"]
+    free = json.loads(_dash_get("/api/status"))["resources_available"]
+    res = {"job_id": job_id, "status": status, "wall_s": wall,
+           "launches": got["launches"], "visible": got["visible"],
+           "bit_identical": got["sha256"] == ref["sha256"],
+           "fp64_sum": got["fp64_sum"],
+           "listed": [j for j in jobs if j["job_id"] == job_id],
+           "gpu_available_after": free.get("GPU", 0)}
+    print(f"[runtime] job {job_id} (python job_entry.py): {status} in "
+          f"{wall:.2f} s; its num_gpus=1 task "
+          f"(CUDA_VISIBLE_DEVICES={got['visible']!r}) ran K4 on [2048, "
+          f"{d}] bf16, launches {got['launches']}, fp64 checksum "
+          f"{got['fp64_sum']!r}, bit-identical to K4 in this process: "
+          f"{res['bit_identical']}; /api/jobs {res['listed']}; GPU "
+          f"available after {res['gpu_available_after']}", flush=True)
+    check(res["bit_identical"] and got["fp64_sum"] == ref["fp64_sum"],
+          f"the job's K4 output differs from this process's: {got} {ref}")
+    check(got["launches"]["rms_norm"] == 1
+          and sum(got["launches"].values()) == 1,
+          f"the job's task launches: {got['launches']}")
+    check(got["visible"] == "0", f"the job's task saw {got['visible']!r}")
+    check(res["listed"] and res["listed"][0]["status"] == "SUCCEEDED",
+          f"/api/jobs: {jobs}")
+    check(res["gpu_available_after"] == 1,
+          f"/api/status after the job: GPU available {free}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def phase_runtime(torch, report, cfg, params, seed: int, card: str):
     """The runtime core on the card (``rt.init``, a GPU task through the
     object store, an 8B engine actor, isolation); see the module
@@ -1911,7 +2546,7 @@ def phase_runtime(torch, report, cfg, params, seed: int, card: str):
     check("RT_GPUS" not in os.environ,
           "the GPU count must come from autodetection, not RT_GPUS")
     t0 = time.perf_counter()
-    rt.init(num_cpus=4, object_store_memory=store)
+    rt.init(num_cpus=4, object_store_memory=store, include_dashboard=True)
     try:
         out["init_s"] = time.perf_counter() - t0
         res = rt.cluster_resources()
@@ -2027,7 +2662,7 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
                 f"(max abs {max_abs})")
     check(task_counts["flash_fwd"] == 1 and task_counts["rms_norm"] == 2,
           f"the GPU task did not launch K1 once and K4 twice: {task_counts}")
-    del layer, layer_ref, x_ref, got, ref
+    del layer, x_ref, got, ref
 
     # -- the in-process engine first, then the actor ---------------------
     ecfg = dict(batch_slots=8, page_size=16, max_prompt_len=512,
@@ -2047,12 +2682,28 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
     gc.collect()
     torch.cuda.empty_cache()
 
-    actor_cls = rt.remote(num_gpus=1)(_RtEngineActor)
+    from ray_tpu_torch.dag import enable_compiled_dags
+
+    actor_cls = enable_compiled_dags(rt.remote(num_gpus=1)(_RtEngineActor))
     t = time.perf_counter()
-    actor = actor_cls.remote(seed, ecfg)
+    actor = actor_cls.remote(seed, ecfg, time.time())
+    # The compiled DAG's CPU stages import torch (7-10 s each) while the
+    # engine actor starts, off the DAG path's clock.
+    dag_stages = [enable_compiled_dags(rt.remote(c)).remote()
+                  for c in (_DagEncode, _DagCollect)]
+    stages_cuda = [a.cuda_initialized.remote() for a in dag_stages]
     info = rt.get(actor.info.remote(), timeout=900)
     out["actor_start_s"] = time.perf_counter() - t
     out["actor"] = info
+    st = info["start"]
+    print(f"[runtime] the 8B engine actor's start by stage (s): spawn to "
+          f"its first line {st['spawn_to_first_line_s']:.2f}, import torch "
+          f"{st['import_torch_s']:.2f} (preloaded: {st['torch_preloaded']}; "
+          f"OS threads {st['os_threads_before_torch']} before, "
+          f"{st['os_threads_after_torch']} after), CUDA context "
+          f"{st['cuda_context_s']:.2f}, 8B build {st['build_8b_s']:.2f}, "
+          f"engine {st['engine_s']:.2f}; {out['actor_start_s']:.1f} s in "
+          f"all at the driver", flush=True)
     check(info["visible"] == "0" and info["count"] == 1,
           f"the actor's card: {info}")
     actor_sums = rt.get(actor.checksums.remote(), timeout=300)
@@ -2167,6 +2818,23 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
           and pools["model_weights"] > 0,
           f"the actor's devmem report at the head: {devmem}")
 
+    # -- compiled DAG, CLI and dashboard while the actor holds the card --
+    t = time.perf_counter()
+    actor_pass = []
+    for p in prompts:
+        toks, _, _ = rt.get(actor.generate.remote(p, _DAG_NEW), timeout=300)
+        actor_pass.append(toks)
+    actor_pass_s = time.perf_counter() - t
+    check(actor_pass == [r["tokens"][:_DAG_NEW] for r in local],
+          "the actor-call pass's tokens differ from the in-process engine's")
+    t = time.perf_counter()
+    out["dag"] = _runtime_dag(rt, actor, info, prompts,
+                              [r["tokens"][:_DAG_NEW] for r in local],
+                              actor_pass_s, dag_stages, stages_cuda)
+    out["dag"]["path_s"] = time.perf_counter() - t
+    print(f"[time] runtime dag, CLI and dashboard: "
+          f"{out['dag']['path_s']:.1f} s", flush=True)
+
     # -- isolation: the card is held, so a second GPU task waits ---------
     apps = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
@@ -2206,6 +2874,19 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
               f"granted actor")
     counts = {k: task_counts[k] + actor_counts[k] for k in task_counts}
     out["launches"] = counts
+
+    # -- after the kill: a workflow and a job, each through a GPU task ---
+    t = time.perf_counter()
+    out["workflow"] = _runtime_workflow(torch, rt, cfg, params, seed,
+                                        layer_ref)
+    out["workflow"]["path_s"] = time.perf_counter() - t
+    print(f"[time] runtime workflow: {out['workflow']['path_s']:.1f} s",
+          flush=True)
+    del layer_ref
+    t = time.perf_counter()
+    out["job"] = _runtime_job(rt, seed, cfg.d_model)
+    out["job"]["path_s"] = time.perf_counter() - t
+    print(f"[time] runtime job: {out['job']['path_s']:.1f} s", flush=True)
 
 
 # ------------------------------------------------------------ serve front
@@ -4471,6 +5152,46 @@ GANG_LOSS_ATOL = 1e-3
 GANG_SLOWER_MAX = 1.5
 
 
+def _proc_ticks():
+    """Each process's user + system CPU ticks with its name, from
+    ``/proc`` (empty where it cannot be read)."""
+    procs = {}
+    for p in os.listdir("/proc") if os.path.isdir("/proc") else ():
+        if not p.isdigit():
+            continue
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                s = f.read()
+        except (OSError, ValueError):
+            continue
+        rest = s[s.rindex(")") + 2:].split()
+        procs[p] = (s[s.index("(") + 1:s.rindex(")")],
+                    int(rest[11]) + int(rest[12]))
+    return procs
+
+
+def _others_ms(a, b, top: int = 3):
+    """Between two ``_proc_ticks``: the ``top`` processes other than this
+    one by CPU milliseconds used, as ``[name, pid, ms]``."""
+    ms = 1e3 / os.sysconf("SC_CLK_TCK")
+    used = sorted(((b[p][0], p, (b[p][1] - a[p][1]) * ms) for p in b
+                   if p in a and p != str(os.getpid())
+                   and b[p][1] > a[p][1]), key=lambda x: -x[2])
+    return [list(x) for x in used[:top]]
+
+
+def _host_line(each) -> str:
+    """``_gang_loop``'s host numbers of each step, one clause a step."""
+    def one(h):
+        return (f"thread CPU {h['thread_cpu_ms']:.1f} ms, GC "
+                f"{h['gc_ms']:.1f} ms ({h['gc_full']} full), alloc retries "
+                f"{h['alloc_retries']}, new segments {h['new_segments']}, "
+                f"others " + (", ".join(f"{n}[{p}] {t:.0f} ms"
+                                        for n, p, t in h["others"])
+                              or "none"))
+    return "; ".join(f"step {i + 1}: {one(h)}" for i, h in enumerate(each))
+
+
 def _gang_cfg(dev, layers=None):
     import torch
 
@@ -4554,19 +5275,52 @@ def _gang_loop(config):
     sync()
     _reset_counts()
     history = []  # every step's numbers, reported again with the last
+    # Garbage collections in this process: their milliseconds and the
+    # full (generation 2) ones, read around each step.
+    gcs = {"ms": 0.0, "full": 0, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gcs["t0"] = time.perf_counter()
+        else:
+            gcs["ms"] += (time.perf_counter() - gcs["t0"]) * 1e3
+            gcs["full"] += info["generation"] == 2
+
+    gc.callbacks.append(on_gc)
+
+    def alloc_counts():
+        if cpu:
+            return 0, 0
+        st = torch.cuda.memory_stats()
+        return (st.get("num_alloc_retries", 0),
+                st.get("segment.all.allocated", 0))
+
     while state.step < config["steps"]:
         batch = next_batch()
         data_wait_s = session._data_wait_s  # this round's, so far
-        t0 = time.perf_counter()
+        # Where a step's wall goes on the host: this thread's CPU time,
+        # garbage collection, the allocator's retries and new segments, the
+        # other processes' CPU time.
+        ticks, allocs = _proc_ticks(), alloc_counts()
+        gc_ms, gc_full = gcs["ms"], gcs["full"]
+        t0, c0 = time.perf_counter(), time.thread_time()
         state, m = step(state, batch)
         loss = float(m["loss"])
         sync()
-        metrics = {"step": state.step, "loss": loss,
-                   "step_ms": (time.perf_counter() - t0) * 1e3,
+        step_ms = (time.perf_counter() - t0) * 1e3
+        cpu_ms = (time.thread_time() - c0) * 1e3
+        allocs2 = alloc_counts()
+        metrics = {"step": state.step, "loss": loss, "step_ms": step_ms,
                    "params": n_params, "pid": os.getpid(),
-                   "data_wait_s": data_wait_s}
+                   "data_wait_s": data_wait_s,
+                   "host": {"thread_cpu_ms": cpu_ms,
+                            "gc_ms": gcs["ms"] - gc_ms,
+                            "gc_full": gcs["full"] - gc_full,
+                            "alloc_retries": allocs2[0] - allocs[0],
+                            "new_segments": allocs2[1] - allocs[1],
+                            "others": _others_ms(ticks, _proc_ticks())}}
         history.append({k: metrics[k] for k in ("step", "loss", "step_ms",
-                                                "data_wait_s")})
+                                                "data_wait_s", "host")})
         if state.step == config["steps"]:
             metrics["history"] = history
             # Wall-clock marks: the loop's start, the model built, the
@@ -4595,6 +5349,7 @@ def _gang_loop(config):
         if config.get("kill_at") == state.step and not os.path.exists(marker):
             open(marker, "w").close()
             os.kill(os.getpid(), signal.SIGKILL)
+    gc.callbacks.remove(on_gc)
 
 
 def _gang_fit(train, config, scratch, name, max_failures=0):
@@ -4658,7 +5413,8 @@ def phase_train_gang(torch, report, seed: int, card: str, dev=None):
             step_ms_each=[m["step_ms"] for m in hist], mfu=mfu,
             mfu_each=mfus, peak_gb=last["peak_gb"], fit_s=wall,
             params=last["params"], visible=last["visible"],
-            launches=last["launches"])
+            launches=last["launches"],
+            host_each=[m["host"] for m in hist])
         check(all(np.isfinite(losses)), f"non-finite gang loss: {losses}")
         line = (f"[train_gang] TorchTrainer, one worker granted the card "
                 f"(CUDA_VISIBLE_DEVICES={last['visible']!r}): "
@@ -4671,6 +5427,8 @@ def phase_train_gang(torch, report, seed: int, card: str, dev=None):
                 f"{last['peak_gb']:.2f} GB; fit {wall:.1f} s; launches "
                 f"{last['launches']}")
         print(line, flush=True)
+        print("[train_gang] host by step: " + _host_line(out["host_each"]),
+              flush=True)
         if not cpu:
             ref = report["train"]
             out["train_step_ms"], out["train_mfu"] = ref["step_ms"], ref["mfu"]
@@ -4736,9 +5494,13 @@ def _gang_restore(train, base, scratch, card):
 
 # --------------------------------------------------------------- data tune
 
-#: The Tuner sweep's grid of learning rates and its steps a trial.
+#: The Tuner sweep's grid of learning rates and its steps a trial, the
+#: first ``TUNE_WARM`` of them untimed, as the train phase's warm steps
+#: (a fresh worker's second step still spends 100-300 ms more host time
+#: than its third; PERF.md, open questions).
 TUNE_LRS = (1e-4, 3e-4)
-TUNE_STEPS = 3
+TUNE_STEPS = 4
+TUNE_WARM = 2
 #: Rows of the prefetch check's dataset.
 PREFETCH_ROWS = 8
 
@@ -4795,12 +5557,12 @@ def _prefetch_check(torch, data, S: int, vocab: int, seed: int, dev):
 
 
 def _tune_rows(tokens, vocab: int, seed: int):
-    """The sweep's dataset rows: the train phase's tokens, then two rows
-    from a seeded numpy generator."""
+    """The sweep's dataset rows, one a step: the train phase's tokens,
+    then rows from a seeded numpy generator."""
     row0 = tokens.detach().cpu().numpy().astype(np.int64)
     S = row0.shape[1]
     rest = np.random.default_rng(seed + 23).integers(
-        0, vocab, (2, S), dtype=np.int64)
+        0, vocab, (TUNE_STEPS - 1, S), dtype=np.int64)
     return np.concatenate([row0, rest])
 
 
@@ -4878,9 +5640,10 @@ def phase_data_tune(torch, report, seed: int, card: str, tokens,
                 "lr": r.config["train_loop_config"]["lr"],
                 "losses": [m["loss"] for m in hist],
                 "step_ms_each": [m["step_ms"] for m in hist],
-                "step_ms": float(np.median([m["step_ms"]
-                                            for m in hist[1:]])),
+                "step_ms": float(np.median([m["step_ms"] for m
+                                            in hist[TUNE_WARM:]])),
                 "data_wait_ms": [m["data_wait_s"] * 1e3 for m in hist],
+                "host_each": [m["host"] for m in hist],
                 "visible": r.metrics["visible"],
                 "launches": r.metrics["launches"],
                 "peak_gb": r.metrics["peak_gb"],
@@ -4908,7 +5671,8 @@ def phase_data_tune(torch, report, seed: int, card: str, tokens,
                   f"(CUDA_VISIBLE_DEVICES={t['visible']!r}), {L} layers, "
                   f"B=1 S={S}, {TUNE_STEPS} steps from the streamed "
                   f"dataset: losses {[round(x, 6) for x in t['losses']]}; "
-                  f"step median {t['step_ms']:.1f} ms "
+                  f"step median {t['step_ms']:.1f} ms after {TUNE_WARM} "
+                  f"warm steps "
                   f"({[round(x, 1) for x in t['step_ms_each']]}); data wait "
                   f"a round {[round(x, 3) for x in t['data_wait_ms']]} ms; "
                   f"peak {t['peak_gb']:.2f} GB; launches {t['launches']}; "
@@ -4916,6 +5680,8 @@ def phase_data_tune(torch, report, seed: int, card: str, tokens,
                   + ", ".join(f"{k} {v:.1f} s"
                               for k, v in t["spans_s"].items())
                   + f"; {card}", flush=True)
+            print(f"[data_tune] trial lr={t['lr']:g} host by step: "
+                  + _host_line(t["host_each"]), flush=True)
         check(all(t["losses"][0] == first_loss for t in recs),
               f"a trial's first loss {[t['losses'][0] for t in recs]} "
               f"differs from the train gang's {first_loss!r}")
@@ -5857,6 +6623,10 @@ def main(argv=None) -> int:
                           "multitenant", "runtime", "serve_front", "train",
                           "remat", "moe", "rllib", "train_gang",
                           "data_tune", "rllib_algos")}
+    # The runtime phase's library paths, each counted in its own process:
+    # the engine actor (dag), the workflow's GPU task, the job's task.
+    paths.update({path: report["runtime"][path]["launches"]
+                  for path in ("dag", "workflow", "job")})
     # The four ranks' launches on each parallel sub-step, summed.
     paths.update({f"parallel_{name}": report["parallel"][name]["launches"]
                   for name in PAR_STEPS})

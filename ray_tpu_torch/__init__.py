@@ -3,7 +3,7 @@
 A second package beside the JAX ``ray_tpu``, which stays the reference it
 is held against.  It follows ``ray_tpu``'s layout and names (``core``,
 ``ops``, ``models``, ``serve``, ``train``, ``parallel``, ``collective``,
-``rllib``, ``util``) so
+``rllib``, ``util``, ``data``, ``tune``, ``dag``, ``workflow``) so
 each module's counterpart is easy to find, and imports only torch, numpy,
 cloudpickle, msgpack and the standard library: nothing of JAX and nothing of
 ``ray_tpu``.  The Pallas TPU kernels on its path are kernels written by hand
@@ -56,7 +56,8 @@ __version__ = "0.1.0"
 #: Subpackages reached as attributes (``ray_tpu_torch.train``), imported on
 #: first touch as the JAX package's are: most of them load torch.
 _SUBPACKAGES = ("serve", "train", "rllib", "collective", "util",
-                "cluster_utils", "data", "tune")
+                "cluster_utils", "data", "tune", "workflow", "dag",
+                "job_submission")
 
 
 def __getattr__(name):

@@ -133,11 +133,6 @@ def init(
 ):
     """Start (or connect to) a cluster.  With no address, an in-process control
     plane is started and worker processes are spawned on demand."""
-    if include_dashboard:
-        raise NotImplementedError(
-            "include_dashboard=True: the dashboard is not ported yet; it "
-            "comes with the slice that ports dashboard, the CLI and job "
-            "submission")
     with _init_lock:
         if ctx.initialized:
             if ignore_reinit_error:
@@ -191,6 +186,10 @@ def init(
         ctx.mode = "driver"
         ctx.session = ctx.client.session
         ctx.namespace = namespace
+        if include_dashboard:
+            from ray_tpu_torch.dashboard import Dashboard
+
+            ctx.dashboard = Dashboard(address, port=dashboard_port).start()
         if os.environ.get("RT_LOG_TO_DRIVER", "1") != "0":
             # Worker stdout/stderr arrive over pubsub (reference: the log
             # monitor republishes worker logs to the driver).
@@ -706,11 +705,10 @@ class ActorMethod:
     def bind(self, *upstreams):
         """Wire this method as a compiled-DAG step; multiple upstream nodes
         become the method's positional args (reference: dag/dag_node.py
-        bind).  Not ported yet: it comes with the slice that ports
-        ``dag``."""
-        raise NotImplementedError(
-            ".bind: compiled DAGs are not ported yet; they come with the "
-            "slice that ports tune, data, dag and workflow")
+        bind)."""
+        from ..dag.compiled import bind as _dag_bind
+
+        return _dag_bind(self, *upstreams)
 
 
 class ActorHandle:

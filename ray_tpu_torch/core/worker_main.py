@@ -1358,6 +1358,9 @@ class Worker:
         """On-demand profiler capture (head push, stack_dump-shaped token
         round trip): run util.profiling.device_trace around the live
         process for N seconds, then reply with the TensorBoard trace dir.
+        A worker granted a card traces the card and its host; one granted
+        none (``CUDA_VISIBLE_DEVICES`` empty, as every worker starts) has
+        no card to trace and captures its host alone.
         The capture sleeps, so it MUST leave the rpc loop thread — a
         second concurrent request fails typed (ProfilerBusyError) rather
         than wedging the first."""
@@ -1371,7 +1374,9 @@ class Worker:
             try:
                 from ..util import profiling as _profiling
 
-                with _profiling.device_trace(logdir):
+                granted = bool(os.environ.get("CUDA_VISIBLE_DEVICES"))
+                with _profiling.device_trace(
+                        logdir, device=None if granted else "cpu"):
                     time.sleep(max(0.05, seconds))
                 reply["logdir"] = logdir
                 try:

@@ -1,7 +1,8 @@
-"""Declarative Serve config: deploy applications from a dict or a JSON
-file (port of ``ray_tpu/serve/config.py``; the JAX module also reads YAML
-files through PyYAML, which the port does not import: JSON is YAML too, so
-a JSON file serves both).
+"""Declarative Serve config: deploy applications from a dict or a file
+(port of ``ray_tpu/serve/config.py``).  A ``.json`` file is read with
+``json``; any other is read as YAML through a lazy ``import yaml``, as the
+JAX module reads every file, so a JSON config works where PyYAML is not
+installed.
 
 Role-equivalent to the reference's Serve schema + `serve deploy`
 (reference: serve/schema.py ServeDeploySchema, scripts `serve deploy` /
@@ -85,13 +86,20 @@ def _apply_overrides(app: Application,
 
 
 def deploy(config: Dict[str, Any] | str, *, wait_ready: bool = True) -> list:
-    """Deploy every application in a config dict or JSON file path.
-    Returns the ingress handles in config order."""
+    """Deploy every application in a config dict or a file path: a
+    ``.json`` path is read with ``json``, any other as YAML through a lazy
+    ``import yaml`` (as the JAX package reads it), so a JSON config needs
+    no PyYAML.  Returns the ingress handles in config order."""
     if isinstance(config, str):
-        import json
-
         with open(config) as f:
-            config = json.load(f)
+            if config.endswith(".json"):
+                import json
+
+                config = json.load(f)
+            else:
+                import yaml
+
+                config = yaml.safe_load(f)
     handles = []
     for app_cfg in config.get("applications", []):
         target = _load_import_path(app_cfg["import_path"])

@@ -881,12 +881,13 @@ def side_by_side(rt):
     return out
 
 
-def run(name, pkg: str, env=None):
+def run(name, pkg: str, env=None, script: str = __file__):
     """Start the scenario ``name`` (or, given a list, each of those in
-    order) under ``pkg`` in one subprocess; returns the ``Popen`` (read it
-    with ``result``: one scenario's result, or ``{name: result}`` for a
-    list).  ``env`` adds variables to this process's environment; a value
-    of None removes one."""
+    order) of ``script`` (these scenarios, or another module of them run
+    the same way) under ``pkg`` in one subprocess; returns the ``Popen``
+    (read it with ``result``: one scenario's result, or ``{name: result}``
+    for a list).  ``env`` adds variables to this process's environment; a
+    value of None removes one."""
     import subprocess
 
     full = dict(os.environ)
@@ -904,7 +905,7 @@ def run(name, pkg: str, env=None):
     full["PYTHONPATH"] = os.pathsep.join(
         [root, here, full.get("PYTHONPATH", "")])
     return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--pkg", pkg,
+        [sys.executable, os.path.abspath(script), "--pkg", pkg,
          *([name] if isinstance(name, str) else ["--many", *name])],
         cwd=root, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)

@@ -49,16 +49,13 @@ JAX_ONLY = {
 #: Names whose module is not ported yet, with their ROADMAP.md Queue 1
 #: item.
 NOT_PORTED = {
-    "ActorPool": "autoscaler/ and util/{actor_pool,queue,multiprocessing}",
-    "Queue": "autoscaler/ and util/{actor_pool,queue,multiprocessing}",
-    "Empty": "autoscaler/ and util/{actor_pool,queue,multiprocessing}",
-    "Full": "autoscaler/ and util/{actor_pool,queue,multiprocessing}",
     "BUILTIN_METRICS": "devtools/ rtlint and its rules (the lint's "
                        "metrics catalog)",
 }
 
 PACKAGES = ["", "models", "ops", "parallel", "collective", "rllib", "train",
-            "serve", "util", "data", "tune"]
+            "serve", "util", "data", "tune", "dag", "workflow",
+            "job_submission"]
 
 
 def _expected(names):
@@ -84,16 +81,27 @@ def _defined(path: pathlib.Path):
 
 def _twins(pkg: str):
     """(JAX module file, port module name) of each module of ``pkg`` that
-    has a twin in the port; the top level's are its own modules."""
+    has a twin in the port; the top level's are its own modules, a
+    module's (``job_submission``) itself, and a package with no
+    ``__all__`` (``workflow``) has its ``__init__``."""
     jdir = ROOT / "ray_tpu" / pkg
     tdir = ROOT / "ray_tpu_torch" / pkg
     if pkg == "":
         files = [jdir / f"{m}.py" for m in ("accelerators", "exceptions",
-                                             "cluster_utils")]
+                                             "cluster_utils", "dashboard",
+                                             "scripts")]
+    elif jdir.with_suffix(".py").is_file():
+        yield jdir.with_suffix(".py"), f"ray_tpu_torch.{pkg}"
+        return
     else:
         files = sorted(jdir.glob("*.py"))
+    own_init = not hasattr(importlib.import_module(
+        ".".join(p for p in ("ray_tpu", pkg) if p)), "__all__")
     for f in files:
-        if f.name != "__init__.py" and (tdir / f.name).exists():
+        if f.name == "__init__.py":
+            if own_init and (tdir / f.name).exists():
+                yield f, f"ray_tpu_torch.{pkg}"
+        elif (tdir / f.name).exists():
             mod = ".".join(p for p in ("ray_tpu_torch", pkg, f.stem) if p)
             yield f, mod
 
@@ -104,9 +112,12 @@ def test_package_names_match_jax(pkg):
     tname = ".".join(p for p in ("ray_tpu_torch", pkg) if p)
     jmod, tmod = importlib.import_module(jname), importlib.import_module(
         tname)
-    missing = _expected(jmod.__all__) - set(tmod.__all__)
+    # A module or package with no ``__all__`` is held by its definitions
+    # (``_twins``).
+    missing = _expected(getattr(jmod, "__all__", ())) - set(
+        getattr(tmod, "__all__", ()))
     assert not missing, (tname, sorted(missing))
-    for name in tmod.__all__:
+    for name in getattr(tmod, "__all__", ()):
         assert getattr(tmod, name) is not None, name
     twins = list(_twins(pkg))
     assert twins
