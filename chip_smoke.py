@@ -130,7 +130,24 @@ no result line):
    SUCCEEDED with its result line in its logs, the output equal to K4 here bit
    for bit, one K4 launch, the job listed by ``/api/jobs`` and the card free
    again in ``/api/status``.  Each of these paths prints its seconds.
-12. serve front: the port's serving front on the card, with its own
+12. autoscale: a GPU node added on demand.  ``rt.init(num_cpus=1,
+   num_gpus=0)``: a head with no card.  An ``Autoscaler`` (``max_nodes=1``,
+   idle timeout 3 s, poll 0.25 s) over ``GpuSliceNodeProvider`` with the
+   1-host, 1-card shape ``a3-highgpu-1g`` and the in-memory Compute Engine
+   stand-in; a ``num_gpus=1`` task gets layer 0 of the 8B model and a
+   seeded [1, 2048, 4096] bf16 activation from the object store and runs
+   ``_rt_block_task`` (K4, K1, K4).  The demand must make exactly one
+   create, the task run on the added node with a non-empty
+   ``CUDA_VISIBLE_DEVICES``, launch K1 once and K4 twice, and return
+   ``_block``'s output here bit for bit; after the idle timeout the slice
+   must get exactly one delete of the same id, the instance's history be
+   ``QUEUED -> REQUESTED -> ALLOCATED -> RAY_RUNNING -> TERMINATING ->
+   TERMINATED``, and the card's free memory after shutdown come back
+   within 1 GiB of what it was before the phase.  Submit to result is
+   printed split into scale-up, worker start and task, then the
+   scale-down, each with the card's name and power limit; the phase must
+   end within 60 s.
+13. serve front: the port's serving front on the card, with its own
    ``rt.init(num_cpus=4)`` (the GPU count from NVML).  (a) The b1 app
    through ``serve.run(serve.llm_app(model="b1", engine=dict(
    batch_slots=8, page_size=16, max_prompt_len=512), adapters={"a1": 1,
@@ -161,25 +178,25 @@ no result line):
    tokens/s at the client and each replica's start time, with the card's
    name and power limit.  gRPC is not driven on the card (the CPU tests
    hold it against the JAX package).
-13. train: the serving model is freed; ``make_train_step(llama_loss)``
+14. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind).
-14. remat: on the same model and optimizer state, ``full`` (the others'
+15. remat: on the same model and optimizer state, ``full`` (the others'
    reference in this phase), then each of ``save_attn``, ``save_dots``,
    ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
    policy that would not fit runs last on a fresh model at the deepest
    depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
    memory, allocator retries, SM clock) and one step under the profiler
    (idle share, time by kernel kind).
-15. train check: a 2-layer full-width model's loss and every gradient in
+16. train check: a 2-layer full-width model's loss and every gradient in
    bf16 (K4's backward included) against the same weights in fp32 on the
    CPU through the plain path (B=1, S=256); then under each of the six
    remat policies a 2-layer model's loss and gradients at S=2048 against
    ``full``'s on the card (bit-identical, or within 2^-8).
-16. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+17. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
    6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
    ``moe_apply`` forward, 2 warm and 5 timed
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
@@ -189,9 +206,9 @@ no result line):
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
-17. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+18. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
-18. rllib: the learners, models and in-process env runners of
+19. rllib: the learners, models and in-process env runners of
    ``ray_tpu_torch.rllib`` on the card in fp32, none given a device.  (a)
    The main path: PPO on CartPole at ``PPOConfig``'s defaults (two
    ``EnvRunner``s of 8 envs x 64 steps, GAE, ``update_from_batch`` of 10
@@ -212,7 +229,7 @@ no result line):
    relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
    Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
    ``mesh=`` dp 2 against the one-process update.
-19. train gang: the training library on the card, its own
+20. train gang: the training library on the card, its own
    ``rt.init(num_cpus=4)`` (``GPU: 1`` from NVML), started once the
    driver has emptied its cache (its reserved bytes printed first).
    ``TorchTrainer(loop, scaling_config=ScalingConfig(num_workers=1,
@@ -231,7 +248,7 @@ no result line):
    SIGKILLed right after; under ``FailureConfig(max_failures=1)`` a new
    worker restores it, and its step-3 loss must equal the uninterrupted
    run's bit for bit.
-20. data tune: ``ray_tpu_torch.data`` and ``tune`` on the card, with
+21. data tune: ``ray_tpu_torch.data`` and ``tune`` on the card, with
    their own ``rt.init(num_cpus=6)``.  (a) 8 seeded rows of S = 2048
    int64 tokens through ``data.from_numpy``, ``map_batches`` (targets
    rolled by one), ``streaming_split(1)`` and ``iter_batches(
@@ -258,7 +275,7 @@ no result line):
    step's host numbers (the loop thread's CPU time, garbage collection,
    the allocator's retries and new segments, other processes' CPU time;
    the train gang prints them too).
-21. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
+22. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
    no card (``device="cpu"``), every learner in this process on the card.
    (a) ``PPO`` on CartPole at ``PPOConfig``'s defaults, 3 iterations,
    against the same driver with ``device="cpu"``: env steps and returns
@@ -268,7 +285,7 @@ no result line):
    ``DQN`` (updates from the first iteration), ``Impala``, ``SAC`` (no
    warmup) and ``MultiAgentPPO`` (two policies): finite losses from a
    learner on the card.  No csrc kernel launches on these paths.
-22. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+23. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -299,7 +316,9 @@ read just after (the rllib paths launch none of the csrc kernels).  The
 train gang's worker zeroes its own process's counts before its first
 step and reports them with its last: six steps' worth; each data-tune
 trial's worker does the same, four steps' worth, and the path's count is
-the two trials' sum.  On the runtime path the
+the two trials' sum.  The autoscale path's task zeroes its own
+process's counts just before its ``_block`` and returns them after it
+(K1 once, K4 twice).  On the runtime path the
 GPU task and the engine actor zero their own process's counters just
 before their main path and return them after it: the task must launch K1
 once and K4 twice, the actor K1 and K4's forward.  The runtime phase's
@@ -1790,23 +1809,25 @@ _STEP_FIELDS = {
 }
 
 
-def _rt_block_task(cfg, layer, x):
+def _rt_block_task(cfg, layer, x, dev=None):
     """The GPU task's body: layer 0 on the card through ``_block`` (K4 on
-    both norms, K1 in between); the output stays a CUDA tensor."""
+    both norms, K1 in between); the output stays a CUDA tensor.  ``dev``
+    "cpu" rehearses it on the CPU."""
     import torch
 
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.models.llama import _block
     from ray_tpu_torch.ops.rotary import rope_frequencies
 
-    dev = resolve_device()
+    dev = resolve_device(dev)
     layer, x = layer.to(dev), x.to(dev)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=dev)
     _reset_counts()
     with torch.no_grad():
         out = _block(cfg, x, layer, cos, sin)
-    torch.cuda.synchronize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     return (out, _read_counts(), os.environ.get("CUDA_VISIBLE_DEVICES"),
             os.getpid())
 
@@ -2966,6 +2987,212 @@ class _Front8B:
                 "itl_p50_ms": _rt_p50(itls) * 1e3,
                 "ttft_p50_ms": _rt_p50(ttfts) * 1e3,
                 "ttft_max_ms": ttfts[-1] * 1e3}
+
+
+# -- autoscale: a GPU node added on demand ------------------------------------
+#
+# ``phase_autoscale`` starts a cluster whose head has no card, so a
+# ``num_gpus=1`` task can only run on a node the autoscaler adds: a 1-host,
+# 1-card slice (``a3-highgpu-1g``) through the in-memory Compute Engine
+# stand-in, whose host joins as a node daemon granting ``{"GPU": 1}``.
+
+#: The phase's idle timeout, poll period and limit (seconds).
+AS_IDLE_S = 3.0
+AS_POLL_S = 0.25
+AS_LIMIT_S = 60.0
+#: The instance history of a node that scaled up and back down.
+AS_HISTORY = ["QUEUED", "REQUESTED", "ALLOCATED", "RAY_RUNNING",
+              "TERMINATING", "TERMINATED"]
+
+
+def _proc_born() -> float:
+    """This process's start on the wall clock (``/proc``, 10-ms ticks)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f
+                     if ln.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _as_block_task(cfg, layer, x, dev):
+    """The added node's task: ``_rt_block_task``, with the worker's node
+    id, its process's start, and the body's start and end on this host's
+    clock."""
+    start = time.time()
+    out, counts, visible, pid = _rt_block_task(cfg, layer, x, dev)
+    return {"out": out, "launches": counts, "visible": visible, "pid": pid,
+            "node": os.environ.get("RT_NODE_ID"), "born": _proc_born(),
+            "start": start, "end": time.time()}
+
+
+def _same_bits(torch, a, b) -> bool:
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool(torch.equal(a.view(ints), b.view(ints))))
+
+
+def phase_autoscale(torch, report, cfg, params, seed: int, card: str,
+                    dev=None):
+    """An ``Autoscaler`` over ``GpuSliceNodeProvider`` adds the node a
+    pending ``num_gpus=1`` task needs, the task runs layer 0 of the 8B
+    model there (K4, K1, K4) from the object store, and the idle node is
+    deleted; see the module docstring's phase list.  ``dev="cpu"``
+    rehearses it on the CPU (the tiny model, a 64-token input)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler
+    from ray_tpu_torch.autoscaler.gce import (GpuSliceNodeProvider,
+                                              MockGceGpuApi)
+    from ray_tpu_torch.models.llama import Block, _block
+    from ray_tpu_torch.ops.rotary import rope_frequencies
+
+    t_phase = time.perf_counter()
+    on_card = dev is None
+    out = {"card": card}
+    layer = Block(cfg, "cpu")
+    layer.load_state_dict({k: v.cpu() for k, v
+                           in params.layers[0].state_dict().items()})
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((1, 2048 if on_card else 64, cfg.d_model),
+                    generator=gen).to(cfg.dtype)
+    pdev = params.layers[0].attn.wq.device
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=pdev)
+    with torch.no_grad():
+        ref = _block(cfg, x.to(pdev), params.layers[0], cos, sin).cpu()
+    del cos, sin
+    gc.collect()
+    free0 = None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    shm = os.statvfs("/dev/shm")
+    store = int(min(4 << 30, shm.f_frsize * shm.f_bavail // 2))
+
+    class Provider(GpuSliceNodeProvider):
+        """Notes when each slice's hosts have joined, and their nodes."""
+
+        joined = []
+
+        def create_node(self):
+            handle = super().create_node()
+            self.joined.append((time.time(), handle.host_handles))
+            return handle
+
+    rt.init(num_cpus=1, num_gpus=0, object_store_memory=store)
+    provider = None
+    try:
+        check("GPU" not in rt.cluster_resources(),
+              f"the head offers a card: {rt.cluster_resources()}")
+        api = MockGceGpuApi()
+        provider = Provider(api, machine_type="a3-highgpu-1g",
+                            num_cpus_per_host=1)
+        scaler = Autoscaler(provider, min_nodes=0, max_nodes=1,
+                            idle_timeout_s=AS_IDLE_S,
+                            poll_interval_s=AS_POLL_S)
+        layer_ref, x_ref = rt.put(layer), rt.put(x)
+        task = rt.remote(num_gpus=1)(_as_block_task)
+        scaler.start()
+        try:
+            t_submit = time.time()
+            got = rt.get(task.remote(cfg, layer_ref, x_ref, dev),
+                         timeout=300)
+            t_result = time.time()
+            deadline = time.monotonic() + AS_IDLE_S + 30
+            while time.monotonic() < deadline and not (
+                    provider.non_terminated_nodes() == []
+                    and any(c["method"].endswith(".delete")
+                            for c in api.calls)):
+                time.sleep(0.05)
+        finally:
+            scaler.stop()
+        state = scaler.instance_manager.get_state()
+        creates = [c for c in api.calls if c["method"].endswith("bulkInsert")]
+        deletes = [c for c in api.calls if c["method"].endswith(".delete")]
+        check(len(creates) == 1 and len(provider.joined) == 1,
+              f"the demand made {len(creates)} creates, expected 1")
+        t_joined, hosts = provider.joined[0]
+        check(len(deletes) == 1
+              and deletes[0]["node_id"] == creates[0]["node_id"],
+              f"scale-down deletes {deletes} against the create "
+              f"{creates[0]['node_id']}")
+        check(len(state) == 1 and [h["status"] for h in state[0]["history"]]
+              == AS_HISTORY, f"instance history {state}")
+        history = {h["status"]: h["ts"] for h in state[0]["history"]}
+        node_ids = [h.hex for h in hosts]
+        # The drained daemon exits after its grace window; its workers
+        # follow it (their connection to it closes).
+        for h in hosts:
+            h.proc.wait(timeout=30)
+        t_exit = time.time()
+    finally:
+        if provider is not None:
+            provider._cluster.shutdown()  # the head too
+        else:
+            rt.shutdown()
+    timing = {"scale_up_s": t_joined - t_submit,
+              "worker_start_s": got["start"] - t_joined,
+              "worker_born_s": got["born"] - t_submit,
+              "worker_import_s": got["start"] - got["born"],
+              "task_s": got["end"] - got["start"],
+              "result_s": t_result - got["end"],
+              "submit_to_result_s": t_result - t_submit,
+              "scale_down_s": history["TERMINATED"] - t_result,
+              "node_exit_s": t_exit - history["TERMINATED"]}
+    same = _same_bits(torch, got["out"], ref)
+    out.update(timing, node=got["node"], added_nodes=node_ids,
+               visible=got["visible"], launches=got["launches"],
+               bit_identical=same, create=creates[0],
+               history=[h["status"] for h in state[0]["history"]],
+               max_abs_err=float((got["out"].float()
+                                  - ref.float()).abs().max()))
+    print(f"[autoscale] submit to result {timing['submit_to_result_s']:.2f}"
+          f" s: scale-up (demand seen, slice created, host joined) "
+          f"{timing['scale_up_s']:.2f} s, worker start "
+          f"{timing['worker_start_s']:.2f} s (its process started "
+          f"{timing['worker_born_s']:.2f} s after the submit, then imports "
+          f"and arguments {timing['worker_import_s']:.2f} s), task (layer 0 "
+          f"to the card, _block on [1, {x.shape[1]}, {cfg.d_model}]) "
+          f"{timing['task_s']:.2f} s, result back "
+          f"{timing['result_s']:.2f} s; {card}", flush=True)
+    print(f"[autoscale] scale-down {timing['scale_down_s']:.2f} s after the "
+          f"result (idle timeout {AS_IDLE_S} s, poll {AS_POLL_S} s), the "
+          f"node daemon gone {timing['node_exit_s']:.2f} s later; node "
+          f"{str(got['node'])[:12]} (added {[n[:12] for n in node_ids]}), "
+          f"CUDA_VISIBLE_DEVICES={got['visible']!r}, launches "
+          f"{got['launches']}, bit-identical {same}; {card}", flush=True)
+    check(got["node"] in node_ids,
+          f"the task ran on node {got['node']}, not the added {node_ids}")
+    check(bool(got["visible"]),
+          f"the task saw CUDA_VISIBLE_DEVICES={got['visible']!r}")
+    check(same, f"the added node's _block differs from this process's "
+                f"(max abs {out['max_abs_err']})")
+    if on_card:
+        check(got["launches"]["flash_fwd"] == 1
+              and got["launches"]["rms_norm"] == 2,
+              f"the task did not launch K1 once and K4 twice: "
+              f"{got['launches']}")
+        deadline = time.monotonic() + 30
+        while True:
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.25)
+        out["card_free_before"], out["card_free_after"] = free0, free
+        print(f"[autoscale] card free {free0 / 2**30:.2f} GiB before, "
+              f"{free / 2**30:.2f} GiB after shutdown; {card}", flush=True)
+        check(free >= free0 - (1 << 30),
+              f"the card's free memory did not come back: "
+              f"{free0 / 2**30:.2f} GiB before, {free / 2**30:.2f} after")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[autoscale] phase {out['phase_s']:.1f} s (limit {AS_LIMIT_S} "
+          f"s); {card}", flush=True)
+    if on_card:
+        check(out["phase_s"] <= AS_LIMIT_S,
+              f"the autoscale phase took {out['phase_s']:.1f} s")
+    report["autoscale"] = out
 
 
 def _front_prompts(cfg, seed: int, cap: int):
@@ -6575,6 +6802,8 @@ def main(argv=None) -> int:
         _timed(report, name, phase, torch, report, cfg, params, seed)
     _timed(report, "runtime", phase_runtime, torch, report, cfg, params,
            seed, card)
+    _timed(report, "autoscale", phase_autoscale, torch, report, cfg, params,
+           seed, card)
     _timed(report, "serve_front", phase_serve_front, torch, report, seed,
            card)
     del params  # the serving model makes room for training
@@ -6620,7 +6849,8 @@ def main(argv=None) -> int:
 
     paths = {path: report[path]["launches"]
              for path in ("tiny_serve", "forward", "serve", "observe",
-                          "multitenant", "runtime", "serve_front", "train",
+                          "multitenant", "runtime", "autoscale",
+                          "serve_front", "train",
                           "remat", "moe", "rllib", "train_gang",
                           "data_tune", "rllib_algos")}
     # The runtime phase's library paths, each counted in its own process:

@@ -8,7 +8,7 @@ RT_TORCH_ADDRESS, or ``core/config.address_file()`` (written by init()).
 
 The port's own copy of ``ray_tpu/scripts.py``, with every subcommand of
 ``python -m ray_tpu``.  ``profile`` asks the worker for a ``torch.profiler``
-capture; ``lint`` refuses, since the port has no rtlint yet.
+capture; ``lint`` runs the port's rtlint over the port's package.
 """
 
 from __future__ import annotations
@@ -400,14 +400,19 @@ def cmd_down(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """rtlint, the JAX package's framework-aware static analysis, has no
-    counterpart in the port yet: a declared refusal until ``devtools/``
-    (rtlint and its rules) is ported, the devtools item of ROADMAP.md's
-    Queue 1."""
-    print("lint: rtlint is not ported to ray_tpu_torch yet; it comes with "
-          "devtools/ (rtlint and its rules), the devtools item of "
-          "ROADMAP.md's Queue 1", file=sys.stderr)
-    return 2
+    """rtlint: framework-aware static analysis over the ray_tpu_torch
+    package (rules RT001-RT012; see ray_tpu_torch/devtools/rtlint.py).
+    Needs no running cluster."""
+    from .devtools import rtlint
+
+    argv = []
+    if args.json:
+        argv.append("--json")
+    if args.root:
+        argv += ["--root", args.root]
+    if args.allowlist:
+        argv += ["--allowlist", args.allowlist]
+    return rtlint.main(argv)
 
 
 def cmd_summary(args) -> int:
@@ -1049,8 +1054,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_down)
 
     p = sub.add_parser(
-        "lint", help="framework-aware static analysis (RT001-RT012; not "
-                     "ported yet)"
+        "lint", help="framework-aware static analysis (RT001-RT012)"
     )
     p.add_argument("--json", action="store_true",
                    help="machine-readable findings")

@@ -735,7 +735,7 @@ class InferenceEngine:
                 shared = match.pages
                 # Pin the match BEFORE any cache eviction below can free
                 # the very pages it names.
-                self._cache.claim(match, self.allocator)
+                self._cache.claim(match, self.allocator)  # rt-owns: prefix_claim
             need = need_total - len(shared)
             pages = self.allocator.alloc(need)
             if pages is None and self._cache is not None:
@@ -891,7 +891,7 @@ class InferenceEngine:
                 req.adapter_slot, temp, self._d_key)
             self.prefill_tokens += n
             self._m_prefill.inc(n)
-        first = int(first)  # THE prefill readback: the first token streams
+        first = int(first)  # rt-sync-ok: THE prefill readback — the first token must reach the host to stream it
         # Cache every fully frozen prompt page (decode appends past the
         # prompt, so pages wholly inside it never change again).
         if self._cache is not None:
@@ -1077,7 +1077,7 @@ class InferenceEngine:
             self._d_tokens, self._d_page_tables, self._d_seq_lens,
             self._d_active, self._d_temps, self._d_adapter_slots,
             self._d_key)
-        toks = self._d_tokens.cpu().numpy()  # THE decode-step readback
+        toks = self._d_tokens.cpu().numpy()  # rt-sync-ok: THE decode-step readback — one batched token fetch per step
         now = time.perf_counter()
         for slot, req in enumerate(self.slots):
             if req is None:

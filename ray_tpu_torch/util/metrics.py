@@ -26,6 +26,109 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+#: Catalog of every built-in ``ray_tpu_*`` metric the framework emits,
+#: name -> kind.  This is the contract operators wire dashboards and
+#: alerts against; rtlint rule RT006 asserts the package's emitters and
+#: this catalog agree (an uncataloged emission is invisible
+#: infrastructure, a row nothing emits is a panel that never populates).
+#: Adding a built-in metric means adding its row here in the same PR.
+BUILTIN_METRICS: Dict[str, str] = {
+    # scheduler / tasks (core/telemetry.py)
+    "ray_tpu_scheduler_submit_to_start_seconds": "histogram",
+    "ray_tpu_scheduler_queue_depth": "gauge",
+    "ray_tpu_scheduler_tasks_dispatched_total": "counter",
+    "ray_tpu_task_duration_seconds": "histogram",
+    # object store (core/telemetry.py)
+    "ray_tpu_object_store_used_bytes": "gauge",
+    "ray_tpu_object_store_capacity_bytes": "gauge",
+    "ray_tpu_object_store_bytes_stored_total": "gauge",
+    "ray_tpu_object_store_bytes_transferred_total": "gauge",
+    "ray_tpu_object_store_hit_rate": "gauge",
+    # train goodput (train/telemetry.py)
+    "ray_tpu_train_step_seconds": "gauge",
+    "ray_tpu_train_tokens_per_sec": "gauge",
+    "ray_tpu_train_mfu": "gauge",
+    "ray_tpu_train_compile_seconds": "gauge",
+    # serve (serve/replica.py, serve/batching.py, serve/handle.py)
+    "ray_tpu_serve_request_latency_seconds": "histogram",
+    "ray_tpu_serve_replica_queue_depth": "gauge",
+    "ray_tpu_serve_batch_size": "histogram",
+    "ray_tpu_serve_batch_queue_depth": "gauge",
+    "ray_tpu_serve_replica_retries_total": "counter",
+    # LLM inference engine (serve/engine.py)
+    "ray_tpu_gen_tokens_total": "counter",
+    "ray_tpu_gen_prefill_tokens_total": "counter",
+    "ray_tpu_gen_kv_pages_in_use": "gauge",
+    "ray_tpu_serve_engine_queue_depth": "gauge",
+    "ray_tpu_serve_engine_active_seqs": "gauge",
+    "ray_tpu_serve_engine_shed_total": "counter",
+    "ray_tpu_serve_engine_completed_total": "counter",
+    "ray_tpu_serve_engine_cancelled_total": "counter",
+    "ray_tpu_serve_engine_ttft_seconds": "histogram",
+    "ray_tpu_serve_engine_itl_seconds": "histogram",
+    # multi-tenant serving plane (serve/engine.py)
+    "ray_tpu_serve_prefix_cache_hits_total": "counter",
+    "ray_tpu_serve_prefix_cache_pages_shared": "gauge",
+    "ray_tpu_serve_adapter_evictions_total": "counter",
+    "ray_tpu_serve_tenant_shed_total": "counter",
+    # data (data/dataset.py)
+    "ray_tpu_data_rows_total": "counter",
+    "ray_tpu_data_stage_seconds_total": "counter",
+    "ray_tpu_data_rows_per_sec": "gauge",
+    # autoscaler (autoscaler/__init__.py)
+    "ray_tpu_autoscaler_demand": "gauge",
+    "ray_tpu_autoscaler_decisions_total": "counter",
+    # dataplane (core/dataplane.py client-side; core/telemetry.py head-side)
+    "ray_tpu_direct_calls_total": "counter",
+    "ray_tpu_leased_tasks_total": "counter",
+    "ray_tpu_lease_revocations_total": "counter",
+    # head fault tolerance (core/telemetry.py head-side)
+    "ray_tpu_head_restarts_total": "counter",
+    "ray_tpu_headless_seconds": "gauge",
+    "ray_tpu_resync_reports_total": "counter",
+    # network fault plane (util/netfault.py injection sites; core/deadline.py
+    # retry/deadline sites; core/dataplane.py quarantines)
+    "ray_tpu_netfaults_injected_total": "counter",
+    "ray_tpu_rpc_retries_total": "counter",
+    "ray_tpu_rpc_deadline_exceeded_total": "counter",
+    "ray_tpu_peer_quarantines_total": "counter",
+    # logging plane (core/worker_main.py)
+    "ray_tpu_logs_dropped_total": "counter",
+    # tracing span plane (util/tracing.py): batched flushes + visible drops
+    "ray_tpu_spans_emitted_total": "counter",
+    "ray_tpu_spans_dropped_total": "counter",
+    # engine step flight recorder (util/steprec.py ring; serve/engine.py
+    # records; core/head.py h_engine_step_batch joins)
+    "ray_tpu_step_records_flushed_total": "counter",
+    "ray_tpu_step_records_dropped_total": "counter",
+    "ray_tpu_engine_stall_seconds_total": "counter",
+    # device-memory accounting (util/devmem.py)
+    "ray_tpu_devmem_pool_bytes": "gauge",
+    # on-demand profiler capture (core/worker_main.py profile handler)
+    "ray_tpu_profile_captures_total": "counter",
+    # health / incident plane (core/head.py wiring over util/health.py;
+    # loop-lag + handler histograms are the head's self-observability)
+    "ray_tpu_incidents_opened_total": "counter",
+    "ray_tpu_incidents_resolved_total": "counter",
+    "ray_tpu_head_loop_lag_seconds": "gauge",
+    "ray_tpu_head_rpc_handler_seconds": "histogram",
+    # gang training observability (util/gangrec.py ring; train/session.py
+    # round records; collective/collective.py per-op timing;
+    # core/head.py h_gang_round_batch joins)
+    "ray_tpu_gang_rounds_flushed_total": "counter",
+    "ray_tpu_gang_rounds_dropped_total": "counter",
+    "ray_tpu_gang_round_skew_seconds": "histogram",
+    "ray_tpu_gang_data_wait_seconds": "histogram",
+    "ray_tpu_collective_op_seconds": "histogram",
+    "ray_tpu_collective_bytes_total": "counter",
+    # put-path contention accounting (core/object_store.py stages + lock
+    # waits; core/rpc.py outbox queue delay)
+    "ray_tpu_store_lock_wait_seconds": "histogram",
+    "ray_tpu_put_copy_seconds": "histogram",
+    "ray_tpu_rpc_outbox_delay_seconds": "histogram",
+}
+
+
 def _cfg():
     """The runtime's config (tests may replace this hook)."""
     from ..core.config import get_config

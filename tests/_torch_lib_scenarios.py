@@ -756,6 +756,73 @@ class Greeter:
 """
 
 
+#: ``lint``'s trees: a clean one, and one seeded with a blocking call in
+#: an async handler (RT001), a cross-role unguarded write (RT007) and a
+#: lock-order cycle (RT008).
+_LINT_TREES = {
+    "clean": {"core/head.py": """
+import asyncio
+
+
+async def h_x(conn, body):
+    await asyncio.sleep(0)
+    return {}
+"""},
+    "seeded": {"core/head.py": """
+import time
+
+
+async def h_x(conn, body):
+    time.sleep(1)
+""", "core/engine.py": """
+import threading
+
+
+class Engine:
+    def __init__(self):
+        self._a = threading.Lock()
+        self._b = threading.Lock()
+        self._jobs = []
+        threading.Thread(target=self._drain, daemon=True,
+                         name="drainer").start()
+
+    def submit(self, job):
+        self._jobs.append(job)
+        with self._a:
+            with self._b:
+                pass
+
+    def _drain(self):
+        self._jobs = []
+        with self._b:
+            with self._a:
+                pass
+"""},
+}
+
+
+def _lint_runs(cli_run, tmp):
+    """``lint --json`` over each of ``_LINT_TREES`` with no allowlist:
+    {tree: [exit code, [[rule, path, line, message], ...]]}."""
+    out = {}
+    for name, files in _LINT_TREES.items():
+        root = os.path.join(tmp, "lint", name, "pkg")
+        for rel, source in files.items():
+            os.makedirs(os.path.dirname(os.path.join(root, rel)),
+                        exist_ok=True)
+            with open(os.path.join(root, rel), "w") as f:
+                f.write(source)
+        rc, so, se = cli_run("lint", "--json", "--root", root,
+                             "--allowlist", os.devnull)
+        try:
+            found = [[f["rule"], f["path"], f["line"], f["message"]]
+                     for f in json.loads(so)["findings"]]
+        except ValueError:
+            found = [so, se]
+        out[name] = [rc, found]
+    return out
+
+
 @scenario
 def cli(rt):
     """``python -m <package>`` against a live cluster: the subcommands of
@@ -978,8 +1045,7 @@ def cli(rt):
     out["serve_deploy"] = [deploys, calls, status,
                            has(["serve", "shutdown"], "serve shut down")]
 
-    rc, so, se = cli_run("lint")
-    out["lint"] = [rc, se.strip()]
+    out["lint"] = _lint_runs(cli_run, tmp)
     helps = subprocess.run([sys.executable, "-m", pkg, "--help"],
                            capture_output=True, text=True,
                            env=_child_env(), timeout=120)

@@ -5,11 +5,11 @@ test_observability.py, test_flight_recorder.py and test_tracing.py drive
 against each package's live cluster (list, status, summary, metrics,
 timeline, events, logs, stack, step records through list/status/top,
 profile, logs --post-mortem, trace), then ``serve deploy`` of a JSON and
-a YAML file and ``down``; both at once on this host, every test comparing
-one piece of the two results.  Then the port alone: ``lint``'s declared
-refusal, the host trace ``profile`` writes for a worker granted no card,
-the address's order of precedence, and the CLI's modules loading no
-torch."""
+a YAML file, ``lint`` over a clean and a seeded tree, and ``down``; both
+at once on this host, every test comparing one piece of the two results.
+Then the port alone: the host trace ``profile`` writes for a worker
+granted no card, the address's order of precedence, and the CLI's modules
+loading no torch."""
 
 import json
 import os
@@ -80,13 +80,16 @@ def test_profile_traces_an_ungranted_worker_host():
 
 
 def test_lint_is_a_declared_refusal():
-    """The port has no rtlint yet: ``lint`` exits 2 and names the ROADMAP
-    item that ports it (the JAX package's lint runs and passes)."""
+    """``lint`` (a declared refusal until the port had its own rtlint)
+    runs the port's rules: over a small clean tree both CLIs exit 0 with
+    no finding, over a seeded one both exit 1 with the same findings
+    (RT001, RT007, RT008)."""
     ref, got = _cli()
-    assert ref["lint"][0] == 0
-    rc, err = got["lint"]
-    assert rc == 2
-    assert "not ported" in err and "devtools" in err and "ROADMAP" in err
+    assert got["lint"] == ref["lint"]
+    assert got["lint"]["clean"] == [0, []]
+    rc, found = got["lint"]["seeded"]
+    assert rc == 1
+    assert sorted({f[0] for f in found}) == ["RT001", "RT007", "RT008"]
 
 
 def test_help_lists_every_jax_subcommand():

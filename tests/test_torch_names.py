@@ -23,6 +23,13 @@ RENAMES = {
     "use_tpu": "use_gpu",                  # ScalingConfig: {"GPU": 1}
     "jax_distributed": "torch_distributed",
     "wants_jax_distributed": "wants_torch_distributed",
+    # autoscaler/gce.py: TPU slices through the TPU-VM API -> GPU slices
+    # through the Compute Engine instances API (A3 machine types).
+    "MockGceTpuApi": "MockGceGpuApi",
+    "TpuSliceNodeProvider": "GpuSliceNodeProvider",
+    "SLICE_TOPOLOGY": "SLICE_SHAPES",
+    # devtools: RT010's module (a module's file name maps too, ``_twins``).
+    "rules_jax": "rules_torch",
 }
 # Paths are not names, so they are not in the map: the scratch roots
 # ``ray_tpu_*`` under the temp dir are the port's ``ray_tpu_torch_*``
@@ -47,15 +54,12 @@ JAX_ONLY = {
 }
 
 #: Names whose module is not ported yet, with their ROADMAP.md Queue 1
-#: item.
-NOT_PORTED = {
-    "BUILTIN_METRICS": "devtools/ rtlint and its rules (the lint's "
-                       "metrics catalog)",
-}
+#: item (none: every module of the JAX package has its twin).
+NOT_PORTED = {}
 
 PACKAGES = ["", "models", "ops", "parallel", "collective", "rllib", "train",
             "serve", "util", "data", "tune", "dag", "workflow",
-            "job_submission"]
+            "job_submission", "autoscaler", "devtools"]
 
 
 def _expected(names):
@@ -101,8 +105,9 @@ def _twins(pkg: str):
         if f.name == "__init__.py":
             if own_init and (tdir / f.name).exists():
                 yield f, f"ray_tpu_torch.{pkg}"
-        elif (tdir / f.name).exists():
-            mod = ".".join(p for p in ("ray_tpu_torch", pkg, f.stem) if p)
+        elif (tdir / f"{RENAMES.get(f.stem, f.stem)}.py").exists():
+            stem = RENAMES.get(f.stem, f.stem)
+            mod = ".".join(p for p in ("ray_tpu_torch", pkg, stem) if p)
             yield f, mod
 
 
