@@ -1319,9 +1319,10 @@ def _serve_mix_prompts(cfg, seed: int):
 def _serve_mix(engine, prompts, temps, n_first: int, new: int):
     """Submit the first ``n_first`` requests, then the rest once those all
     decode, each consumed on its own thread; every stream must finish with
-    ``new`` tokens in the vocabulary.  Returns ([(tokens, ttft_s,
-    stream)] in submit order, wall seconds, active slots when the late
-    requests arrived)."""
+    ``new`` tokens in the vocabulary.  Returns ([(tokens, ttft_s, stream,
+    gaps_s)] in submit order, where ``gaps_s`` are the seconds between
+    consecutive tokens as the consumer took them, wall seconds, active
+    slots when the late requests arrived)."""
     vocab = engine.model_config.vocab_size
     results = [None] * len(prompts)
     errors = []
@@ -1329,11 +1330,13 @@ def _serve_mix(engine, prompts, temps, n_first: int, new: int):
 
     def consume(i, stream):
         try:
-            toks = []
+            toks, times = [], []
             for tok in stream:
+                times.append(time.perf_counter())
                 toks.append(tok)
                 started.set()
-            results[i] = (toks, stream.ttft_s, stream)
+            results[i] = (toks, stream.ttft_s, stream,
+                          np.diff(times).tolist())
         except Exception as e:  # noqa: BLE001: reported below
             errors.append((i, repr(e)))
             started.set()
@@ -1362,7 +1365,7 @@ def _serve_mix(engine, prompts, temps, n_first: int, new: int):
         check(not th.is_alive(), "a stream did not finish in 600 s")
     wall = time.perf_counter() - t0
     check(not errors, f"stream errors: {errors}")
-    for i, (toks, _, _) in enumerate(results):
+    for i, (toks, *_) in enumerate(results):
         check(len(toks) == new, f"request {i}: {len(toks)} tokens, "
                                 f"expected {new}")
         check(all(0 <= t < vocab for t in toks),
@@ -1401,7 +1404,7 @@ def phase_serve(torch, report, cfg, params, seed: int):
           f"backward never): {counts}")
     ttfts = sorted(r[1] for r in results)
     total = sum(len(r[0]) for r in results)
-    itls = sorted(sum(r[2]._req.itls) / len(r[2]._req.itls) for r in results)
+    itls = sorted(sum(r[3]) / len(r[3]) for r in results)
     ref = generate(cfg, params, prompts[check_idx][None],
                    max_new_tokens=new)[0, -new:].cpu().tolist()
     got = results[check_idx][0]
@@ -1423,7 +1426,8 @@ def phase_serve(torch, report, cfg, params, seed: int):
         "wall_s": wall, "tokens": total, "tokens_per_s": total / wall,
         "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
         "ttft_max_ms": ttfts[-1] * 1e3, "steps": stats["steps"],
-        # The engine's mean inter-token gap of each request, p50.
+        # Each request's mean inter-token gap, as its consumer took the
+        # tokens, p50.
         "itl_p50_ms": itls[len(itls) // 2] * 1e3,
         "launches": counts, "greedy_agree": agree,
         "greedy_prefix": prefix,
@@ -1497,11 +1501,11 @@ def _trace_busy(log_dir: str):
 
 
 def _observe_mix(engine, prompts, temps, n_first, new):
-    """One run of the serving mix; (tokens/s, p50 of the engine-side
-    inter-token latencies in ms, which is one decode step's wall as each
-    token saw it, admission prefills included where they fall)."""
+    """One run of the serving mix; (tokens/s, p50 of the inter-token gaps
+    in ms as the consumers took the tokens, which is one decode step's wall
+    as each token saw it, admission prefills included where they fall)."""
     results, wall, _ = _serve_mix(engine, prompts, temps, n_first, new)
-    itls = sorted(x for r in results for x in r[2]._req.itls)
+    itls = sorted(x for r in results for x in r[3])
     return sum(len(r[0]) for r in results) / wall, \
         itls[len(itls) // 2] * 1e3
 
@@ -2978,8 +2982,7 @@ class _Front8B:
         consumed by a thread here (``_serve_mix``), greedy."""
         results, wall, _ = _serve_mix(self.engine, prompts,
                                       [0.0] * len(prompts), n_first, new)
-        itls = sorted(sum(r[2]._req.itls) / len(r[2]._req.itls)
-                      for r in results)
+        itls = sorted(sum(r[3]) / len(r[3]) for r in results)
         ttfts = sorted(r[1] for r in results)
         tokens = sum(len(r[0]) for r in results)
         return {"tokens": [r[0] for r in results], "wall_s": wall,

@@ -30,7 +30,7 @@ from __future__ import annotations
 import os
 import threading
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 ENV_FLAG = "RT_DEBUG_JIT"
 
@@ -52,6 +52,7 @@ _lock = threading.Lock()
 _counts: Dict[str, int] = {}
 _sigs: Dict[str, Any] = {}          # program -> last signature
 _baseline: Dict[str, int] = {}      # armed program -> count at arm()
+_log: List[str] = []                # the program of every trace, in order
 
 
 def reset_sentinel_state() -> None:
@@ -60,6 +61,7 @@ def reset_sentinel_state() -> None:
         _counts.clear()
         _sigs.clear()
         _baseline.clear()
+        _log.clear()
 
 
 def register_program(name: str) -> None:
@@ -82,6 +84,20 @@ def counts() -> Dict[str, int]:
     """Snapshot of every registered program's trace count."""
     with _lock:
         return dict(_counts)
+
+
+def total() -> int:
+    """Traces of every program so far, as one integer: a caller that keeps
+    it can tell with one comparison whether any program met a new
+    signature since, and :func:`traced_since` names which."""
+    return len(_log)
+
+
+def traced_since(mark: int) -> List[str]:
+    """The program of each trace after the first ``mark`` (a
+    :func:`total` taken earlier), in order."""
+    with _lock:
+        return _log[mark:]
 
 
 def signature_of(arrays: Dict[str, Any]) -> Dict[str, Any]:
@@ -136,6 +152,7 @@ def bump(name: str, signature: Optional[Dict[str, Any]] = None,
     with _lock:
         n = _counts.get(name, 0) + 1
         _counts[name] = n
+        _log.append(name)
         prev_sig = _sigs.get(name)
         if signature is not None:
             _sigs[name] = signature

@@ -34,8 +34,16 @@ Observability is the JAX engine's too, through the port's own
   same names, descriptions, tags and histogram boundaries, updated at the
   same points;
 - per-request ``engine:queue`` / ``engine:prefill`` / ``engine:decode``
-  spans (``util/tracing.py``, ``time.time()`` walls), parented to the
-  submitter's trace context when ``submit`` ran inside a sampled trace;
+  spans (``util/tracing.py``, stamped on ``tracing.now()``, the device
+  trace's clock), parented to the submitter's trace context when
+  ``submit`` ran inside a sampled trace;
+- one ``engine:step`` span a step while a traced request is admitted or
+  holds a slot (``_emit_step_span``): the step's phase stamps (admission
+  done, prefills done, decode launch, launch returned, tokens read back)
+  and host counters (slots decoded, KV positions attended against those
+  the gather reads), all in one trace of the engine's own with no parent,
+  so no request's trace holds them.  Untraced traffic pays one integer
+  comparison a step;
 - device-memory pools (``util/devmem.py``): ``model_weights``, ``kv_pool``
   and ``adapter_pool``, registered while the engine lives;
 - the recompile sentinel (``devtools/jitguard.py``): ``warmup()`` arms it
@@ -74,8 +82,7 @@ from ..devtools import jitguard
 from ..models.llama import Lora, _normal_, lora_init
 from ..models.paged import (PAGED_PROGRAMS, PageAllocator, call_counts,
                             copy_page, init_paged_pools, paged_decode_step,
-                            paged_prefill, paged_prefill_prefix, trace_count,
-                            trace_counts)
+                            paged_prefill, paged_prefill_prefix, trace_count)
 from ..util import devmem, steprec, tracing
 from ..util.metrics import get_counter, get_gauge, get_histogram
 from .adapter_pool import AdapterPool
@@ -148,7 +155,8 @@ class _Request:
     __slots__ = (
         "req_id", "prompt", "max_new", "temperature", "stop_token",
         "out_q", "cancelled", "pages", "page_table", "generated",
-        "submit_t", "first_token_t", "last_token_t", "itls", "slot",
+        "submit_t", "first_token_t", "last_token_t", "itl_sum", "itl_n",
+        "slot",
         "trace_ctx", "submit_wall", "admit_wall", "first_wall",
         "tenant", "weight", "adapter", "adapter_slot", "match", "cow_ref",
         "cache_hit_len",
@@ -169,13 +177,15 @@ class _Request:
         self.submit_t = time.perf_counter()
         self.first_token_t: Optional[float] = None
         self.last_token_t: Optional[float] = None
-        # Engine-side inter-token latencies: measured at emission, so they
-        # reflect decode cadence, not consumer scheduling.
-        self.itls: List[float] = []
+        # Engine-side inter-token latencies, summed for a traced request
+        # only (its decode span's ``mean_itl_s``): measured at emission, so
+        # they reflect decode cadence, not consumer scheduling.
+        self.itl_sum = 0.0
+        self.itl_n = 0
         self.slot = -1
         # Tracing: the submitter's span context (None when the request
         # arrived untraced/unsampled: then the engine emits nothing) plus
-        # wall-clock transition stamps for the queue/prefill/decode spans
+        # ``tracing.now()`` stamps for the queue/prefill/decode spans
         # (submit_t/first_token_t are perf_counter and can't be shared with
         # wall-clocked spans from other threads or processes).
         self.trace_ctx: Optional[Dict[str, str]] = None
@@ -288,6 +298,10 @@ class InferenceEngine:
         self._d_seq_lens = self._d_active = self._d_temps = None
         self._d_adapter_slots = None
         self.step_count = 0
+        # Step spans: traced requests holding a slot (the O(1) gate, changed
+        # at admission and eviction) and the engine's own trace id.
+        self._traced_slots = 0
+        self._step_trace = tracing.new_id()
         self._req_counter = 0
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -435,7 +449,7 @@ class InferenceEngine:
             # Capture the submitter's trace context: the loop thread emits
             # this request's queue/prefill/decode spans against it.
             req.trace_ctx = tracing.context_for_submit()
-            req.submit_wall = time.time()
+            req.submit_wall = tracing.now()
             self._queues.setdefault(tenant, []).append(req)
             victim: Optional[_Request] = None
             if self._queued_total() > self.config.max_queue:
@@ -760,7 +774,9 @@ class InferenceEngine:
             w = max(req.weight, 1e-9)
             self._vtime[tenant] = v_start + self._req_cost(req) / w
             self._vclock = v_start
-            req.admit_wall = time.time()
+            req.admit_wall = tracing.now()
+            if req.trace_ctx is not None:
+                self._traced_slots += 1
             req.pages = shared + pages
             req.match = match
             if match is not None and match.cow_src is not None:
@@ -793,11 +809,13 @@ class InferenceEngine:
         # derivable from the span tree alone.
         self._emit_req_span(
             req, "engine:decode", req.first_wall or req.admit_wall,
-            time.time(), tokens=req.generated, reason=reason,
+            tracing.now(), tokens=req.generated, reason=reason,
             ttft_s=round(req.first_token_t - req.submit_t, 6)
             if req.first_token_t is not None else None,
-            mean_itl_s=round(sum(req.itls) / len(req.itls), 6)
-            if req.itls else None)
+            mean_itl_s=round(req.itl_sum / req.itl_n, 6)
+            if req.itl_n else None)
+        if req.trace_ctx is not None:
+            self._traced_slots -= 1
         self._release(req)
         self._evicted_total += 1
         self.slots[slot] = None
@@ -854,7 +872,7 @@ class InferenceEngine:
         self._emit_req_span(req, "engine:queue", req.submit_wall,
                             req.admit_wall or req.submit_wall,
                             prompt_len=int(n))
-        pf_start = time.time()
+        pf_start = tracing.now()
         dev = self.device
         prefix_len = req.cache_hit_len
         adapters = self.adapter_pool.arrays
@@ -905,7 +923,7 @@ class InferenceEngine:
         now = time.perf_counter()
         req.first_token_t = now
         req.last_token_t = now
-        req.first_wall = time.time()
+        req.first_wall = tracing.now()
         # Prefill span: bucket and cached-prefix attrs make padding waste
         # and cache effectiveness readable straight off the trace.
         self._emit_req_span(req, "engine:prefill", pf_start, req.first_wall,
@@ -942,7 +960,7 @@ class InferenceEngine:
         queued and retry against the fresh pool.  The streams get the
         error once the engine is rebuilt."""
         failed = [req for req in self.slots if req is not None]
-        now_wall = time.time()
+        now_wall = tracing.now()
         for req in failed:
             self._emit_req_span(
                 req, "engine:decode",
@@ -951,6 +969,7 @@ class InferenceEngine:
                 error=repr(exc)[:200])
             self._release(req)
         self.slots = [None] * self.config.batch_slots
+        self._traced_slots = 0
         # The pools are rebuilt below, so every cached KV page and every
         # resident adapter slot is garbage: drop the tree's refs and reset
         # the adapter pool (the registry survives; adapters reload on next
@@ -973,6 +992,9 @@ class InferenceEngine:
 
     def _loop(self) -> None:
         while True:
+            # The step span's start, stamped only while a traced request
+            # holds a slot: untraced traffic pays this comparison alone.
+            start = tracing.now() if self._traced_slots else 0.0
             with self._lock:
                 if self._stop:
                     break
@@ -1008,15 +1030,25 @@ class InferenceEngine:
                                       tags=self._pid_tags)
                     self._wake.wait(timeout=0.05)
                     continue
+            span = None
+            if self._traced_slots:
+                # A step that admits the first traced request starts at
+                # that admission.
+                span = {"start": start or min(
+                    r.admit_wall for r in admitted if r.trace_ctx is not None),
+                    "admitted": tracing.now(), "prefills": len(admitted)}
             # Model work runs OUTSIDE the lock: pools/slot arrays belong
             # to this thread; submit() only appends to the wait queue.
             # Control ops run here for the same reason.
             for task in control:
                 task()
             try:
-                self._run_step(admitted)
+                decoded = self._run_step(admitted, span)
             except Exception as e:  # noqa: BLE001: fail streams, not
                 self._fail_inflight(e)  # the loop thread
+                continue
+            if span is not None:
+                self._emit_step_span(span, decoded)
         # Shutdown: fail queued + in-flight requests loudly, and unblock any
         # control-op waiters.
         with self._lock:
@@ -1034,7 +1066,11 @@ class InferenceEngine:
             if req is not None:
                 self._evict(slot, "shutdown")
 
-    def _run_step(self, admitted: List[_Request]) -> None:
+    def _run_step(self, admitted: List[_Request],
+                  span: Optional[Dict[str, Any]] = None) -> bool:
+        """Prefill the admitted requests, then run one decode step over
+        the busy slots; returns whether it decoded.  ``span`` (a traced
+        step) takes the step's phase stamps and host counters."""
         # Flight recorder entry state: step wall, admission-stall span and
         # per-step deltas come from host counters only: no device sync, no
         # lock beyond what the loop already holds.
@@ -1044,17 +1080,19 @@ class InferenceEngine:
         evicted0 = self._evicted_total
         shed0 = self.shed
         pc_hits0 = self.prefix_hits
-        traces0 = trace_counts() if rec_on else None
+        traces0 = jitguard.total() if rec_on else None
         for req in admitted:
             pf0 = time.perf_counter()
             self._prefill(req)
             stall_s += time.perf_counter() - pf0
         self.prefill_s += stall_s
+        if span is not None:
+            span["prefilled"] = tracing.now()
         if not any(s is not None for s in self.slots):
             if rec_on and admitted:
                 self._record_step(t0, stall_s, len(admitted), evicted0,
                                   shed0, pc_hits0, traces0, decoded=False)
-            return
+            return False
         self.step_count += 1
         dev = self.device
         if self._dirty:
@@ -1070,6 +1108,15 @@ class InferenceEngine:
             self._d_adapter_slots = torch.tensor(self._adapter_slots,
                                                     device=dev)
             self._dirty = False
+        if span is not None:
+            busy = int(self._active.sum())
+            span["occupancy"] = busy
+            # Positions attended (each busy slot's cache and the new
+            # token) against those the page-table gather reads.
+            span["kv_live"] = int(self._seq_lens[self._active].sum()) + busy
+            span["kv_read"] = (self.config.batch_slots * self.maxp
+                               * self.config.page_size)
+            span["launch"] = tracing.now()
         (self._d_tokens, self._d_seq_lens, self._d_key,
          self.pools) = paged_decode_step(
             self.model_config, self.params, self.pools,
@@ -1077,7 +1124,11 @@ class InferenceEngine:
             self._d_tokens, self._d_page_tables, self._d_seq_lens,
             self._d_active, self._d_temps, self._d_adapter_slots,
             self._d_key)
+        if span is not None:
+            span["launched"] = tracing.now()
         toks = self._d_tokens.cpu().numpy()  # rt-sync-ok: THE decode-step readback — one batched token fetch per step
+        if span is not None:
+            span["synced"] = tracing.now()
         now = time.perf_counter()
         for slot, req in enumerate(self.slots):
             if req is None:
@@ -1086,7 +1137,9 @@ class InferenceEngine:
             self._tokens[slot] = toks[slot]
             if req.last_token_t is not None:
                 itl = now - req.last_token_t
-                req.itls.append(itl)
+                if req.trace_ctx is not None:
+                    req.itl_sum += itl
+                    req.itl_n += 1
                 self._m_itl.observe(itl)
             req.last_token_t = now
             self._emit_token(req, int(toks[slot]))
@@ -1096,11 +1149,22 @@ class InferenceEngine:
         if rec_on:
             self._record_step(t0, stall_s, len(admitted), evicted0,
                               shed0, pc_hits0, traces0, decoded=True)
+        return True
+
+    def _emit_step_span(self, span: Dict[str, Any], decoded: bool) -> None:
+        """The ``engine:step`` span of the step that just ran, from the
+        loop iteration's start to now: ``engine`` and ``step`` join it to
+        the step's record; the phase stamps are ``tracing.now()`` walls,
+        unrounded.  Into the engine's own trace, with no parent."""
+        start = span.pop("start")
+        tracing.emit_span(tracing.make_span(
+            {"trace_id": self._step_trace}, "engine:step", start,
+            tracing.now(), engine=self.engine_id, step=self.step_count,
+            decoded=decoded, **span))
 
     def _record_step(self, t0: float, stall_s: float, admitted: int,
                      evicted0: int, shed0: int, pc_hits0: int,
-                     traces0: Optional[Dict[str, int]],
-                     decoded: bool) -> None:
+                     traces0: Optional[int], decoded: bool) -> None:
         """Append one flight-recorder record for the step that just ran.
         Called on the loop thread; everything here is host bookkeeping
         (the decode result was already read back for token emission)."""
@@ -1114,10 +1178,9 @@ class InferenceEngine:
         # Compile observability: a trace-count bump inside this step means
         # this step's wall paid a program's first run with a new signature
         # (on the card, possibly a kernel's build): attribute it.
-        if traces0 is not None:
-            for prog, n in trace_counts().items():
-                if n > traces0.get(prog, 0):
-                    devmem.record_compile(prog, wall_s)
+        if traces0 is not None and jitguard.total() > traces0:
+            for prog in dict.fromkeys(jitguard.traced_since(traces0)):
+                devmem.record_compile(prog, wall_s)
         with self._lock:
             queued = self._queued_total()
             tenants = {t: len(q) for t, q in self._queues.items() if q}

@@ -7,6 +7,9 @@ overflow drops the span, counts it in ``ray_tpu_spans_dropped_total`` and
 logs one warning per process: drops are visible, never silent.  Root spans
 roll ``trace_sample_rate``; ``trace(..., force=True)`` always traces.
 Inside an unsampled root, nested spans and submissions stay span-free.
+Every span is stamped on :func:`now`, the wall clock that the device
+trace (``torch.profiler``'s CUDA activity) stamps its events on too, so a
+span and the kernels inside it can be laid on one timeline.
 ``drain_buffered()`` hands the ring back (what tests and the chip check
 read), ``trace_analysis`` turns a trace's spans into a tree, a critical path
 and a stage breakdown, and ``chrome_trace`` renders span events for
@@ -54,6 +57,15 @@ _current: contextvars.ContextVar[Optional[Dict[str, Any]]] = (
 )
 
 logger = logging.getLogger("ray_tpu_torch.tracing")
+
+
+def now() -> float:
+    """Wall seconds (``time.time()``): the clock of every span stamp.
+    Kineto stamps the device trace's events on the same clock, so a span's
+    stamps bound the kernels launched inside it; the card test in
+    ``benchmarks/tests/test_step_metrics.py`` checks that the two agree
+    around a launch."""
+    return time.time()
 
 
 def new_id() -> str:
@@ -149,7 +161,7 @@ def _note_dropped(n: int, why: str) -> None:
 
 def emit_span(span: Dict[str, Any]) -> None:
     """Record a finished span into the bounded ring.  The span dict needs at
-    least trace_id/span_id/name; start/end are ``time.time()`` walls in
+    least trace_id/span_id/name; start/end are :func:`now` walls in
     seconds.  Ring overflow drops the span (counted), never blocks."""
     with _ring_lock:
         if len(_ring) < _ring_cap():
@@ -258,7 +270,7 @@ def trace(name: str, force: bool = False, **attrs):
         "span_id": new_id(),
     }
     token = _current.set(span_ctx)
-    start = time.time()
+    start = now()
     try:
         yield span_ctx
     finally:
@@ -272,7 +284,7 @@ def trace(name: str, force: bool = False, **attrs):
             "parent_id": parent["span_id"] if parent else None,
             "name": name,
             "start": start,
-            "end": time.time(),
+            "end": now(),
             "pid": os.getpid(),
             **({"attrs": attrs} if attrs else {}),
         })

@@ -549,6 +549,12 @@ def llm_engine(rt):
             self.engine = eng.InferenceEngine(
                 cfg, params, eng.EngineConfig(**_ENGINE), **kw)
             self.engine.register_adapter("direct", _tree("RT_SERVE_LORA"))
+            # Every program is built here, in the replica's start: a first
+            # request that pays the JAX engine's compiles can outlast the
+            # runtime's gray-failure bound on a loaded host (a direct call
+            # slower than half of peer_call_deadline_s retires its route,
+            # and the stream's next pull reads as a dead worker).
+            self.engine.warmup()
 
         def __call__(self, prompt_tokens, max_new_tokens=8, adapter=None):
             if adapter is None:
@@ -640,8 +646,10 @@ def llm_app(rt):
     eng = importlib.import_module(rt.__name__ + ".serve.engine")
     kw = {"device": "cpu"} if _port(rt) else {}
     ecfg = dict(batch_slots=4, page_size=8, max_prompt_len=32)
+    # warmup=True: the replica builds every program as it starts (see
+    # llm_engine's EngineHost).
     handle = serve.run(serve.llm_app(model="tiny", engine=ecfg,
-                                     adapters={"a1": 1}, **kw))
+                                     adapters={"a1": 1}, warmup=True, **kw))
     stream = handle.options(stream=True)
     got = [list(stream.remote(p, 6)) for p in _PROMPTS]
     got_a1 = list(stream.remote(_PROMPTS[1], 6, adapter="a1"))
