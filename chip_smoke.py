@@ -9,8 +9,8 @@ no result line):
 1. card: ``nvidia-smi`` name and power limit.
 2. build: compile every kernel under ``ray_tpu_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together); print ptxas's
-   registers and spills, and fail if the bf16 K2 or K3 kernels or any K4
-   kernel spill.
+   registers and spills, and fail if the bf16 K2 or K3 kernels, any K4
+   kernel or any of K5's tensor-core (bf16) kernels spill.
 3. K4 (``csrc/rms_norm.cu``): the forward against ``_rms_ref`` (fp32 and
    bf16, d 4096, 4100 and 128, 8 to 2048 rows), timed at [8, 512, 1000,
    2048] x 4096 bf16 beside the plain version and ``F.rms_norm``; the
@@ -30,19 +30,26 @@ no result line):
    timed at the training shape (S = 512 and 2048) beside the plain
    version and SDPA's backward, with the SM clock sampled before and
    after each timed loop.
-6. tiny serve: the tiny model (head_dim 32, ``llm_app``'s default model)
+6. K5 (``csrc/paged_decode.cu``) at the chat and docs cells' decode
+   shapes (Mistral-7B: 32/8 heads, head_dim 128, bf16, page 16; 64 slots
+   of 96 pages with 50 busy, 16 of 260 with 15 busy; lengths drawn like
+   the cells' traffic, pages out of order) against
+   ``paged_decode_attention_ref``, then timed over eight layers' pools
+   beside its bound (the live K/V rows, q and the output over 3.35 TB/s)
+   and the plain version.
+7. tiny serve: the tiny model (head_dim 32, ``llm_app``'s default model)
    served on the card by ``InferenceEngine``, in fp32 (its greedy tokens
    must equal the same engine's on the CPU from the same parameters) and
    in bf16, its default dtype (its prefill logits held against the fp32
    forward of the same parameters on the CPU).
-7. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
+8. forward: ``llama_apply`` on full Llama-3-8B (32 layers, random weights
    from a seed) at B=1, S=2048, then a 2-layer full-width model against the
    same weights in fp32 on the CPU through the plain path.
-8. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
+9. serve: ``InferenceEngine`` on full Llama-3-8B answers 12 requests (8 at
    once, 4 admitted while those decode); checks counts, page balance and
    greedy agreement with ``generate``; then a warm 8-request window under
    the profiler: wall, prefill and device busy time of that one window.
-9. observe: serving observability on the same model.  A default-built
+10. observe: serving observability on the same model.  A default-built
    engine (recording and prefix cache on), warmed under RT_DEBUG_JIT=1 so
    the recompile sentinel is armed, serves the serve phase's mix in one
    forced root trace: no RecompileError and no new program signature;
@@ -59,7 +66,7 @@ no result line):
    windows, "not measured" if CUPTI records no device activity in any);
    then the same mix with ``step_record`` on, off, off, on (tokens/s,
    the p50 inter-token latency and the host time of each record).
-10. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
+11. multitenant: the radix prefix cache and the LoRA adapter pool.  (a)
    The tiny model in fp32 (prefix cache on, 2 adapters): a 48-token
    shared prefix with six tails and a fork inside its second page, over
    the base model and both adapters, served twice; greedy tokens equal to
@@ -74,7 +81,7 @@ no result line):
    prompt served alone from the cache and cold.  K1 is timed at a suffix
    shape (Sq 64, Sk 576, q_offset 384) beside the plain version and SDPA
    with an explicit boolean mask.
-11. runtime: the port's runtime core and its libraries on the card.
+12. runtime: the port's runtime core and its libraries on the card.
    ``rt.init(num_cpus=4, include_dashboard=True)`` in this process (the object
    store sized to half of ``/dev/shm``'s free space, at most 4 GiB) must
    autodetect ``GPU: 1``.  An ungranted task sees ``CUDA_VISIBLE_DEVICES=""``
@@ -130,7 +137,7 @@ no result line):
    SUCCEEDED with its result line in its logs, the output equal to K4 here bit
    for bit, one K4 launch, the job listed by ``/api/jobs`` and the card free
    again in ``/api/status``.  Each of these paths prints its seconds.
-12. autoscale: a GPU node added on demand.  ``rt.init(num_cpus=1,
+13. autoscale: a GPU node added on demand.  ``rt.init(num_cpus=1,
    num_gpus=0)``: a head with no card.  An ``Autoscaler`` (``max_nodes=1``,
    idle timeout 3 s, poll 0.25 s) over ``GpuSliceNodeProvider`` with the
    1-host, 1-card shape ``a3-highgpu-1g`` and the in-memory Compute Engine
@@ -147,7 +154,7 @@ no result line):
    printed split into scale-up, worker start and task, then the
    scale-down, each with the card's name and power limit; the phase must
    end within 60 s.
-13. serve front: the port's serving front on the card, with its own
+14. serve front: the port's serving front on the card, with its own
    ``rt.init(num_cpus=4)`` (the GPU count from NVML).  (a) The b1 app
    through ``serve.run(serve.llm_app(model="b1", engine=dict(
    batch_slots=8, page_size=16, max_prompt_len=512), adapters={"a1": 1,
@@ -178,25 +185,25 @@ no result line):
    tokens/s at the client and each replica's start time, with the card's
    name and power limit.  gRPC is not driven on the card (the CPU tests
    hold it against the JAX package).
-14. train: the serving model is freed; ``make_train_step(llama_loss)``
+15. train: the serving model is freed; ``make_train_step(llama_loss)``
    with ``default_optimizer(lr=1e-4)`` on full Llama-3-8B (random weights
    from a seed, remat full) at B=1, S=2048: 2 warm and 5 timed AdamW
    steps (step time, tokens/s, MFU under bench.py's convention, peak
    memory; loss and grad norm finite, the loss falling), then one step
    under the profiler (idle share, time by kernel kind).
-15. remat: on the same model and optimizer state, ``full`` (the others'
+16. remat: on the same model and optimizer state, ``full`` (the others'
    reference in this phase), then each of ``save_attn``, ``save_dots``,
    ``save_dots_no_batch`` and ``xla_cse``: its peak reckoned first (a
    policy that would not fit runs last on a fresh model at the deepest
    depth that fits), then 1 warm and 3 timed steps (step time, MFU, peak
    memory, allocator retries, SM clock) and one step under the profiler
    (idle share, time by kernel kind).
-16. train check: a 2-layer full-width model's loss and every gradient in
+17. train check: a 2-layer full-width model's loss and every gradient in
    bf16 (K4's backward included) against the same weights in fp32 on the
    CPU through the plain path (B=1, S=256); then under each of the six
    remat policies a 2-layer model's loss and gradients at S=2048 against
    ``full``'s on the card (bit-identical, or within 2^-8).
-17. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
+18. moe: ``MoEConfig.mixtral_8x7b(n_layers=4)`` (Mixtral-8x7B's widths,
    6.07 B parameters, bf16, router fp32, remat full) at B=1, S=2048: a
    ``moe_apply`` forward, 2 warm and 5 timed
    ``make_train_step(moe_loss)`` steps (step time, tokens/s, MFU with N
@@ -206,9 +213,9 @@ no result line):
    loss and every gradient in bf16 against fp32 on the CPU (B=1, S=256),
    and the tokens each expert kept, card against CPU, with the router
    margins of tokens whose choice differs.
-18. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
+19. mlp: the MNIST MLP built with no device (so on the card), 20 AdamW
    steps; the loss must fall by half.
-19. rllib: the learners, models and in-process env runners of
+20. rllib: the learners, models and in-process env runners of
    ``ray_tpu_torch.rllib`` on the card in fp32, none given a device.  (a)
    The main path: PPO on CartPole at ``PPOConfig``'s defaults (two
    ``EnvRunner``s of 8 envs x 64 steps, GAE, ``update_from_batch`` of 10
@@ -229,7 +236,7 @@ no result line):
    relative norm, the parameters within Adam's bound (``_rl_gate``).  (d)
    Two ranks on the one card over gloo: PPO's ``update_from_batch`` at
    ``mesh=`` dp 2 against the one-process update.
-20. train gang: the training library on the card, its own
+21. train gang: the training library on the card, its own
    ``rt.init(num_cpus=4)`` (``GPU: 1`` from NVML), started once the
    driver has emptied its cache (its reserved bytes printed first).
    ``TorchTrainer(loop, scaling_config=ScalingConfig(num_workers=1,
@@ -248,7 +255,7 @@ no result line):
    SIGKILLed right after; under ``FailureConfig(max_failures=1)`` a new
    worker restores it, and its step-3 loss must equal the uninterrupted
    run's bit for bit.
-21. data tune: ``ray_tpu_torch.data`` and ``tune`` on the card, with
+22. data tune: ``ray_tpu_torch.data`` and ``tune`` on the card, with
    their own ``rt.init(num_cpus=6)``.  (a) 8 seeded rows of S = 2048
    int64 tokens through ``data.from_numpy``, ``map_batches`` (targets
    rolled by one), ``streaming_split(1)`` and ``iter_batches(
@@ -275,7 +282,7 @@ no result line):
    step's host numbers (the loop thread's CPU time, garbage collection,
    the allocator's retries and new segments, other processes' CPU time;
    the train gang prints them too).
-22. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
+23. rllib drivers: ``rt.init(num_cpus=6)``, every runner an actor granted
    no card (``device="cpu"``), every learner in this process on the card.
    (a) ``PPO`` on CartPole at ``PPOConfig``'s defaults, 3 iterations,
    against the same driver with ``device="cpu"``: env steps and returns
@@ -285,7 +292,7 @@ no result line):
    ``DQN`` (updates from the first iteration), ``Impala``, ``SAC`` (no
    warmup) and ``MultiAgentPPO`` (two policies): finite losses from a
    learner on the card.  No csrc kernel launches on these paths.
-23. parallel: four ranks spawned on the one card (NCCL refuses two ranks
+24. parallel: four ranks spawned on the one card (NCCL refuses two ranks
    on one device, so they join a gloo group through a FileStore, gloo
    carrying CUDA tensors through pinned host memory; the ranks load the
    kernels phase 2 built and never run nvcc), each sub-step against its
@@ -334,7 +341,8 @@ replicas together must launch K1 and K4's forward, and never K2, K3 or
 K4's backward.  K1 and K4's
 forward must have launched on the tiny serve, forward, serve and observe
 paths (K4's backward never), on the multitenant path K1 once a layer per
-prefill and K4's forward once a norm per program call.  Per layer and step a train step
+prefill and K4's forward once a norm per program call; K5 once a layer
+per decode step on the tiny serve, serve, observe and multitenant paths.  Per layer and step a train step
 with remat full (Llama's and MoE's) launches K1 and, per norm, K4's
 forward twice (forward and remat recompute), K2, K3 and K4's backward
 once, plus the final norm once each way; ``save_attn`` launches K1 once,
@@ -492,12 +500,12 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)"
+            t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)?"
                           r"((?:L[ib]\d+E)*)E", m.group(1))
+            dtype = {"f": ["f32"], "13__nv_bfloat16": ["bf16"]}
             name = (f"{t[1]}<" + ", ".join(
-                ["f32" if t[2] == "f" else "bf16"]
-                + re.findall(r"L[ib](\d+)E", t[3])) + ">"
-                    if t else m.group(1))
+                dtype.get(t[2], []) + re.findall(r"L[ib](\d+)E", t[3]))
+                + ">" if t else m.group(1))
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -535,6 +543,12 @@ def phase_build(report):
     k4 = report["ptxas"]["rms_norm"]
     check(len(k4) > 0 and not any(sp for _, _, sp in k4),
           f"a K4 kernel spills (or none was found): {k4}")
+    # K5's tensor-core kernels (bf16, every head_dim and group) hold the
+    # accumulators in registers: none may spill.
+    k5 = [(k, sp) for k, _, sp in report["ptxas"]["paged_decode"]
+          if k.startswith("paged_decode_kernel<")]
+    check(len(k5) == 12 and not any(sp for _, sp in k5),
+          f"K5's tensor-core kernels spill (or were not all found): {k5}")
 
 
 def phase_rms(torch, report):
@@ -1109,6 +1123,127 @@ def _time_bwd(torch, att, F, g, S):
     return out
 
 
+#: K5 at the benchmark's serving cells (Mistral-7B: 32/8 heads, head_dim
+#: 128, bf16, page 16): slots, pages a slot, busy slots, the traffic's
+#: prompt length (median, sigma, min, max) and output median.
+K5_SHAPES = {"chat": (64, 96, 50, (192, 0.8, 32, 1024), 128),
+             "docs": (16, 260, 15, (1536, 0.4, 512, 3840), 24)}
+#: Layers' pools the timed loop walks, as a decode step does: more live
+#: K/V than the 50 MB L2 holds, so each call reads its pages cold.
+K5_LAYERS = 8
+
+
+def _k5_slots(rng, B, maxp, busy, prompt, out_med, ps):
+    """(seq_lens [B], page tables [B, maxp], pages) of a cell's decode
+    step: busy slots hold a prompt drawn like the traffic's plus the
+    tokens decoded so far, on pages drawn out of order; idle slots length
+    0 on the scratch page (index ``pages``)."""
+    med, sigma, lo, hi = prompt
+    n = np.clip(np.round(rng.lognormal(np.log(med), sigma, busy)), lo, hi)
+    n = np.minimum(n + rng.integers(0, out_med, busy), maxp * ps - 1)
+    lens = np.zeros(B, np.int32)
+    lens[:busy] = n
+    is_busy = np.arange(B) < busy
+    order = rng.permutation(B)
+    lens, is_busy = lens[order], is_busy[order]
+    need = np.where(is_busy, (lens + ps) // ps, 0)
+    pages = int(need.sum())
+    tables = np.full((B, maxp), pages, np.int32)
+    free = rng.permutation(pages)
+    for b in range(B):
+        tables[b, :need[b]], free = free[:need[b]], free[need[b]:]
+    return lens, tables, pages
+
+
+def phase_paged_decode(torch, report, seed: int):
+    """K5 (``csrc/paged_decode.cu``) at the chat and docs cells' decode
+    shapes: against the plain version in bf16 on one layer's pools, then
+    timed over ``K5_LAYERS`` layers' pools beside its bound (the live K/V
+    rows it must read, plus q and the output, over 3.35 TB/s) and the
+    plain version (the whole-table gather it replaces)."""
+    from ray_tpu_torch.ops import attention as att
+
+    H, Hkv, D, ps = 32, 8, 128, 16
+    rng = np.random.default_rng(seed + 23)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    out = {}
+    for name, (B, maxp, busy, prompt, out_med) in K5_SHAPES.items():
+        lens, tables, pages = _k5_slots(rng, B, maxp, busy, prompt, out_med,
+                                        ps)
+
+        def pool():
+            return torch.randn((pages + 1, Hkv, ps, D), generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+
+        kp = [pool() for _ in range(K5_LAYERS)]
+        vp = [pool() for _ in range(K5_LAYERS)]
+        # Queries scaled up, as the card tests do: each softmax is peaked,
+        # so a wrong page or row moves the output by its whole size.
+        q = (3.0 * torch.randn((B, H, D), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+        t_tables = torch.from_numpy(tables).cuda()
+        t_lens = torch.from_numpy(lens).cuda()
+        scale = D ** -0.5
+        n0 = att.paged_decode_attention.launches
+        got = att.paged_decode_attention(q, kp[0], vp[0], t_tables, t_lens,
+                                         scale=scale)
+        want = att.paged_decode_attention_ref(q, kp[0], vp[0], t_tables,
+                                              t_lens, scale=scale)
+        torch.cuda.synchronize()
+        check(att.paged_decode_attention.launches == n0 + 1,
+              "K5 did not count its launch")
+        # bf16: the plain version rounds its probabilities to bf16, K5
+        # carries them as bf16 hi + lo (about 16 bits) and sums in fp32;
+        # the tolerances are the card tests' (tests/test_torch_paged_
+        # decode.py): elementwise, and the norm of the difference.
+        err, ok = within(torch, got, want, 1e-2, 1e-2)
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        check(ok and rel <= 1e-2,
+              f"K5 at {name}'s shape differs from the plain version: max "
+              f"abs err {err}, relative norm of the difference {rel}")
+        walk = {"i": 0}
+
+        def step(fn):
+            def call():
+                i = walk["i"] = (walk["i"] + 1) % K5_LAYERS
+                fn(q, kp[i], vp[i], t_tables, t_lens, scale=scale)
+            return call
+
+        k5, plain = (step(att.paged_decode_attention),
+                     step(att.paged_decode_attention_ref))
+        clocks_before = clocks_line()
+        call_ms = time_ms(torch, k5, iters=4 * K5_LAYERS)
+        by_kernel, _ = profile_window(torch, k5, iters=2 * K5_LAYERS)
+        clocks_after = clocks_line()
+        ms = sum(by_kernel.values())
+        plain_ms = device_ms(torch, plain, iters=K5_LAYERS)
+        live = int(np.where(lens > 0, lens + 1, 1).sum())
+        nbytes = live * Hkv * D * 2 * 2 + 2 * B * H * D * 2
+        bound = _bound(nbytes, 4.0 * live * H * D)
+        rec = {"shape": dict(B=B, MAXP=maxp, page=ps, H=H, Hkv=Hkv, D=D,
+                             busy=busy, dtype="bfloat16"),
+               "live_positions": live, "table_positions": B * maxp * ps,
+               "max_abs_err": err, "rel_norm_err": rel,
+               "out_abs_mean": want.float().abs().mean().item(),
+               "call_ms": call_ms, "ms": ms,
+               "by_kernel_ms": by_kernel, "plain_ms": plain_ms,
+               # No PyTorch call attends a paged cache.
+               "library_ms": None, **bound,
+               "bound_share": bound["bound_ms"] / ms,
+               "clocks_before": clocks_before, "clocks_after": clocks_after}
+        out[name] = rec
+        print(f"[paged-decode] {name}: {live} live positions of "
+              f"{B * maxp * ps}; K5 {ms * 1e3:.1f} us (bound "
+              f"{bound['bound_ms'] * 1e3:.1f} us by {bound['bound_by']}, "
+              f"{100 * rec['bound_share']:.1f} %), plain {plain_ms:.3f} ms; "
+              + json.dumps(rec), flush=True)
+        del kp, vp, want
+        torch.cuda.empty_cache()
+    out["main"] = out["chat"]
+    report["paged_decode"] = out
+
+
 def _counters():
     """{kernel name: its wrapper, which carries the launch count}."""
     from ray_tpu_torch.ops import attention, norms
@@ -1117,7 +1252,8 @@ def _counters():
             "flash_bwd_dq": attention.flash_attention_bwd_dq,
             "flash_bwd_dkv": attention.flash_attention_bwd_dkv,
             "rms_norm": norms.rms_norm_cuda,
-            "rms_norm_bwd": norms.rms_norm_bwd}
+            "rms_norm_bwd": norms.rms_norm_bwd,
+            "paged_decode": attention.paged_decode_attention}
 
 
 def _reset_counts():
@@ -1127,6 +1263,19 @@ def _reset_counts():
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _decode_calls() -> int:
+    from ray_tpu_torch.models import paged
+
+    return paged.call_count("decode")
+
+
+def _check_k5(counts, decodes: int, layers: int, where: str) -> None:
+    """The decode step launches K5 once a layer, every step."""
+    check(decodes > 0 and counts["paged_decode"] == layers * decodes,
+          f"{where}: {counts['paged_decode']} K5 launches over {decodes} "
+          f"decode steps of {layers} layers")
 
 
 def phase_tiny_serve(torch, report, seed: int):
@@ -1168,9 +1317,12 @@ def phase_tiny_serve(torch, report, seed: int):
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in lengths]
         _reset_counts()
+        decodes0 = _decode_calls()
         got, stats = serve(cfg, params, None, prompts)
         torch.cuda.synchronize()
         counts = _read_counts()
+        _check_k5(counts, _decode_calls() - decodes0, cfg.n_layers,
+                  f"tiny serve ({name})")
         check(all(len(t) == new for t in got),
               f"tiny serve ({name}) lost tokens")
         check(counts["flash_fwd"] > 0 and counts["rms_norm"] > 0
@@ -1385,9 +1537,11 @@ def phase_serve(torch, report, cfg, params, seed: int):
     prompts, temps, n_first = _serve_mix_prompts(cfg, seed)
     try:
         _reset_counts()
+        decodes0 = _decode_calls()
         results, wall, active_at_late = _serve_mix(engine, prompts, temps,
                                                    n_first, new)
         counts = _read_counts()
+        decodes = _decode_calls() - decodes0
         deadline = time.time() + 10
         while (engine.allocator.free_count != engine.allocator.total
                and time.time() < deadline):
@@ -1402,6 +1556,7 @@ def phase_serve(torch, report, cfg, params, seed: int):
           and counts["rms_norm_bwd"] == 0,
           f"serve path did not launch K1 and K4's forward (and K4's "
           f"backward never): {counts}")
+    _check_k5(counts, decodes, cfg.n_layers, "serve")
     ttfts = sorted(r[1] for r in results)
     total = sum(len(r[0]) for r in results)
     itls = sorted(sum(r[3]) / len(r[3]) for r in results)
@@ -1555,6 +1710,7 @@ def phase_observe(torch, report, cfg, params, seed: int):
         dropped0 = steprec.dropped_total()
         m0, prefill0 = totals(), engine.prefill_tokens
         _reset_counts()
+        decodes0 = _decode_calls()
         # Any signature first met from here raises RecompileError on the
         # stream that met it, which _serve_mix fails on.
         with tracing.trace("chip:observe", force=True) as root:
@@ -1562,6 +1718,8 @@ def phase_observe(torch, report, cfg, params, seed: int):
                                           new)
         engine._run_on_loop(lambda: None)  # the last step has recorded
         counts = _read_counts()
+        _check_k5(counts, _decode_calls() - decodes0, cfg.n_layers,
+                  "observe")
         m1 = totals()
         traces1 = paged.trace_counts()
         check(traces1 == traces0, f"a program met a new signature after "
@@ -2745,8 +2903,11 @@ def _runtime_paths(torch, rt, out, cfg, params, seed):
                       f"in-process engine's on requests "
                       f"{[i for i, m in enumerate(match) if not m]}")
     check(actor_counts["flash_fwd"] > 0 and actor_counts["rms_norm"] > 0
-          and actor_counts["rms_norm_bwd"] == 0,
-          f"the actor's serving did not launch K1 and K4: {actor_counts}")
+          and actor_counts["rms_norm_bwd"] == 0
+          and actor_counts["paged_decode"] > 0
+          and actor_counts["paged_decode"] % cfg.n_layers == 0,
+          f"the actor's serving did not launch K1, K4 and K5 (once a "
+          f"layer a decode step): {actor_counts}")
     # Timing through the actor: a first token (max_new_tokens=1) per
     # prompt timed at this process, and the bare call's round trip.
     first = []
@@ -3699,10 +3860,11 @@ def phase_serve_front(torch, report, seed: int, card: str, dev=None):
                        for k in out["b1"]["launches"]}
     c = out["launches"]
     check(cpu or (c["flash_fwd"] > 0 and c["rms_norm"] > 0
+                  and c["paged_decode"] > 0
                   and c["flash_bwd_dq"] == c["flash_bwd_dkv"] == 0
                   and c["rms_norm_bwd"] == 0),
-          f"the replicas did not launch K1 and K4's forward (and K2, K3 and "
-          f"K4's backward never): {c}")
+          f"the replicas did not launch K1, K4's forward and K5 (and K2, K3 "
+          f"and K4's backward never): {c}")
     report["serve_front"] = out
 
 
@@ -3868,6 +4030,7 @@ def _multitenant_tiny(torch, seed: int):
           and counts["rms_norm_bwd"] == 0,
           f"tiny multitenant launches {counts} do not match program calls "
           f"{calls}")
+    _check_k5(counts, calls["decode"], L, "tiny multitenant")
     return {"requests": 2 * len(jobs), "tokens_equal": same,
             "second_round_equal": again == got,
             "prefix_hits": hits, "program_calls": calls,
@@ -3970,6 +4133,7 @@ def _multitenant_8b(torch, cfg, params, seed: int):
           and counts["rms_norm_bwd"] == 0,
           f"8B multitenant: program calls {calls}, launches {counts}: K1 "
           f"and K4 must run on every prefill_prefix call")
+    _check_k5(counts, calls["decode"], L, "8B multitenant")
     check(decode_traces == 0, f"8B multitenant: the mix added "
                               f"{decode_traces} decode signatures")
     check(balanced, "8B multitenant: pages leaked after "
@@ -4088,12 +4252,13 @@ def _train_launches(L: int, steps: int, policy: str = "full"):
     twice (forward and recompute), its backward once; ``save_attn`` keeps
     the attention's residuals, so K1 runs once; with no checkpoint
     (``xla_cse``, ``cse_save_attn``) K1 and the norms run once.  The final
-    norm runs once each way.  The MoE block remats in full."""
+    norm runs once each way.  The MoE block remats in full.  K5 runs only
+    in a decode step, so never here."""
     k1 = 1 if policy in ("save_attn", "xla_cse", "cse_save_attn") else 2
     k4 = 2 if policy in ("xla_cse", "cse_save_attn") else 4
     return {"flash_fwd": k1 * L * steps, "flash_bwd_dq": L * steps,
             "flash_bwd_dkv": L * steps, "rms_norm": (k4 * L + 1) * steps,
-            "rms_norm_bwd": (2 * L + 1) * steps}
+            "rms_norm_bwd": (2 * L + 1) * steps, "paged_decode": 0}
 
 
 _OTHER = "other (elementwise, reductions, copies)"
@@ -6601,7 +6766,7 @@ def _par_expected(name: str):
     n = PAR_WORLD
     if name == "ring":
         return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                "rms_norm": 0, "rms_norm_bwd": 0}
+                "rms_norm": 0, "rms_norm_bwd": 0, "paged_decode": 0}
     if name in _PAR_LLAMA:
         L, mcfg, _, _, steps, sp_shard_seq = _PAR_LLAMA[name]
         want = _train_launches(L, steps)
@@ -6613,7 +6778,8 @@ def _par_expected(name: str):
         c = _PAR_PIPE
         t = (c["n_micro"] + c["pp"] - 1) * c["layers"] // c["pp"]
         return {"flash_fwd": t, "flash_bwd_dq": t, "flash_bwd_dkv": t,
-                "rms_norm": 2 * t + 1, "rms_norm_bwd": 2 * t + 1}
+                "rms_norm": 2 * t + 1, "rms_norm_bwd": 2 * t + 1,
+                "paged_decode": 0}
     return _train_launches(_PAR_MOE["layers"], _PAR_MOE["steps"])
 
 
@@ -6795,6 +6961,7 @@ def main(argv=None) -> int:
     _timed(report, "rms", phase_rms, torch, report)
     _timed(report, "flash", phase_flash, torch, report)
     _timed(report, "flash_bwd", phase_flash_bwd, torch, report)
+    _timed(report, "paged_decode", phase_paged_decode, torch, report, seed)
     _timed(report, "tiny_serve", phase_tiny_serve, torch, report, seed)
     cfg, params = _timed(report, "forward", phase_forward, torch, report,
                          seed)
@@ -6876,7 +7043,11 @@ def main(argv=None) -> int:
              "ray_tpu/ops/norms.py:20", report["rms_norm"]["main"]),
             # No Pallas kernel: XLA's fusion of jax.vjp of rms_norm.
             ("rms_norm_bwd", "ray_tpu_torch/csrc/rms_norm.cu",
-             "ray_tpu/ops/norms.py:56", report["rms_norm"]["bwd"]["main"])):
+             "ray_tpu/ops/norms.py:56", report["rms_norm"]["bwd"]["main"]),
+            # No Pallas kernel: the JAX decode step's plain XLA gather.
+            ("paged_decode", "ray_tpu_torch/csrc/paged_decode.cu",
+             "ray_tpu/models/paged.py:paged_decode_step",
+             report["paged_decode"]["main"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

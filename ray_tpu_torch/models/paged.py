@@ -10,8 +10,10 @@ Same layout and contracts as the JAX package:
 - A host-side refcounted free-list allocator (``PageAllocator``, a copy of
   the JAX one) hands pages to sequences; page tables are ``[MAXP]`` int32,
   scratch-filled past the allocated prefix.
-- The decode step gathers each slot's pages into a linear view and masks by
-  sequence length (plain tensor ops, as in the JAX package).  The prefill
+- The decode step attends each slot's live pages through its page table
+  with ``paged_decode_attention`` (kernel K5 on the card, which reads no
+  page past the slot's length; on the CPU the JAX package's gather of the
+  whole table into a linear view, masked by sequence length).  The prefill
   attends the prompt's own fresh K/V, which is causal attention over one
   sequence: it goes through ``flash_attention`` (kernel K1 on the card).
   The cached-prefix prefill (``paged_prefill_prefix``) attends its suffix
@@ -46,7 +48,7 @@ import torch
 
 from ..device import DeviceLike
 from ..devtools import jitguard as _jitguard
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention, paged_decode_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
 from .llama import Llama, LlamaConfig, Lora, _mlp, lora_from_jax
@@ -317,7 +319,7 @@ def paged_decode_step(config: LlamaConfig, params: Llama,
     B = tokens.shape[0]
     maxp = page_tables.shape[1]
     ps = pools["k"].shape[3]
-    n_rep = config.n_heads // config.n_kv_heads
+    tables_in, lens_in = page_tables, seq_lens  # K5 reads them as given
     tokens, page_tables = tokens.long(), page_tables.long()
     seq_lens, adapter_ids = seq_lens.long(), adapter_ids.long()
     x = params.embed[tokens].to(config.dtype)  # [B, d]
@@ -326,7 +328,6 @@ def paged_decode_step(config: LlamaConfig, params: Llama,
     b_idx = torch.arange(B, device=x.device)
     page_idx = page_tables[b_idx, seq_lens // ps]  # [B]
     off = seq_lens % ps
-    pos_grid = torch.arange(maxp * ps, device=x.device)[None, None, :]
     qa_g, qb_g = adapters["qa"][adapter_ids], adapters["qb"][adapter_ids]
     va_g, vb_g = adapters["va"][adapter_ids], adapters["vb"][adapter_ids]
     lscale = adapters["scale"][adapter_ids]  # [B]
@@ -344,21 +345,8 @@ def paged_decode_step(config: LlamaConfig, params: Llama,
         v = v_flat.view(B, hkv, hd)
         _write_kv(pools["k"], i, page_idx, off, k)
         _write_kv(pools["v"], i, page_idx, off, v)
-        # Each slot's pages as one linear [B, H_kv, MAXP*ps, D] view; the
-        # length mask removes scratch / unwritten positions.
-        k_seq = pools["k"][i][page_tables].permute(0, 2, 1, 3, 4).reshape(
-            B, hkv, maxp * ps, hd)
-        v_seq = pools["v"][i][page_tables].permute(0, 2, 1, 3, 4).reshape(
-            B, hkv, maxp * ps, hd)
-        if n_rep > 1:
-            k_seq = k_seq.repeat_interleave(n_rep, dim=1)
-            v_seq = v_seq.repeat_interleave(n_rep, dim=1)
-        scores = torch.einsum("bhd,bhkd->bhk", q.float(),
-                              k_seq.float()) * (hd ** -0.5)
-        scores = torch.where(pos_grid <= seq_lens[:, None, None], scores,
-                             torch.full_like(scores, -1e30))
-        probs = torch.softmax(scores, dim=-1).to(v_seq.dtype)
-        out = torch.einsum("bhk,bhkd->bhd", probs, v_seq)
+        out = paged_decode_attention(q, pools["k"][i], pools["v"][i],
+                                     tables_in, lens_in, scale=hd ** -0.5)
         x = x + out.reshape(B, -1) @ a.wo
         h = rms_norm(x, layer.mlp_norm, config.norm_eps)
         x = x + _mlp(layer, h)

@@ -1,5 +1,6 @@
 """Flash attention: the hand-written CUDA kernels K1 (forward), K2 (dQ) and
-K3 (dK/dV), and their plain PyTorch versions.
+K3 (dK/dV), the paged decode attention K5, and their plain PyTorch
+versions.
 
 Port of ``ray_tpu/ops/attention.py``.  Layout [batch, heads, seq,
 head_dim]; GQA k/v may have fewer heads (kv head = h // (H / Hkv), never
@@ -19,6 +20,11 @@ materialised repeated on the kernel path).
   ``csrc/flash_bwd.cu`` (``flash_attention_bwd_dq``: Pallas
   ``_bwd_dq_kernel``; ``flash_attention_bwd_dkv``: Pallas
   ``_bwd_dkv_kernel``).  ``flash_attention`` returns the output only.
+- ``paged_decode_attention``: one decode query per slot over the serve
+  engine's paged KV pools, read through the page tables.  CUDA tensors
+  launch ``csrc/paged_decode.cu`` (K5, which replaces no Pallas kernel:
+  the JAX decode step gathers the pages with plain XLA ops); CPU tensors
+  take ``paged_decode_attention_ref``, that gather.
 """
 
 from __future__ import annotations
@@ -409,3 +415,184 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out, _ = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
                                  q_offset=q_offset)
     return out
+
+
+# ------------------------------------------------ paged decode attention
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               page_tables: torch.Tensor,
+                               seq_lens: torch.Tensor, *,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Plain version of kernel K5, the decode step's attention as the JAX
+    package computes it: gather each slot's whole page table into a linear
+    view, repeat K/V for GQA, fp32 scores, mask positions past
+    ``seq_lens``, softmax, P.V in the working dtype.  Arguments as
+    ``paged_decode_attention``."""
+    B, H, hd = q.shape
+    hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    maxp = page_tables.shape[1]
+    n_rep = H // hkv
+    scale = hd ** -0.5 if scale is None else scale
+    page_tables, seq_lens = page_tables.long(), seq_lens.long()
+    pos_grid = torch.arange(maxp * ps, device=q.device)[None, None, :]
+    # Each slot's pages as one linear [B, H_kv, MAXP*ps, D] view; the
+    # length mask removes scratch / unwritten positions.
+    k_seq = k_pages[page_tables].permute(0, 2, 1, 3, 4).reshape(
+        B, hkv, maxp * ps, hd)
+    v_seq = v_pages[page_tables].permute(0, 2, 1, 3, 4).reshape(
+        B, hkv, maxp * ps, hd)
+    if n_rep > 1:
+        k_seq = k_seq.repeat_interleave(n_rep, dim=1)
+        v_seq = v_seq.repeat_interleave(n_rep, dim=1)
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), k_seq.float()) * scale
+    scores = torch.where(pos_grid <= seq_lens[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v_seq.dtype)
+    return torch.einsum("bhk,bhkd->bhd", probs, v_seq)
+
+
+#: K5's builds: the query groups (H / Hkv) and pages it takes.
+_PAGED_REPS = (1, 2, 4, 8)
+_PAGED_MAX_PAGE = 64
+_paged = {}
+#: K5's launch plans by signature (the shapes, strides, dtypes and devices
+#: of its arguments): the checks run once a signature, not once a layer of
+#: every decode step.
+_plans = {}
+
+
+def _paged_kernel():
+    """(lib, rt_paged_decode) of a built ``paged_decode.cu``."""
+    if not _paged:
+        lib = _build.load("paged_decode")
+        fn = lib.rt_paged_decode
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.rt_paged_decode_chunk.argtypes = [ctypes.c_int] * 2
+        lib.rt_paged_decode_chunk.restype = ctypes.c_int
+        _paged.update(lib=lib, fn=fn)
+    return _paged["lib"], _paged["fn"]
+
+
+class _Plan:
+    """K5's launch for one signature: the split (the kernel's chunk for B
+    x Hkv on this card), the fp32 scratch of the splits' partials and
+    their counts (which every launch leaves zero), both reused by every
+    call on the device's stream, and the integer arguments."""
+
+    __slots__ = ("lib", "fn", "part", "counts", "strides", "ints")
+
+    def __init__(self, q, k_pages, page_tables):
+        self.lib, self.fn = _paged_kernel()
+        B, H, D = q.shape
+        hkv, ps = k_pages.shape[1], k_pages.shape[2]
+        maxp = page_tables.shape[1]
+        chunk = self.lib.rt_paged_decode_chunk(B, hkv)
+        if chunk <= 0:
+            raise RuntimeError("K5 could not read the card's SM count")
+        n_split = -(-maxp * ps // chunk)
+        self.part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
+                                device=q.device)
+        self.counts = torch.zeros((B, hkv), dtype=torch.int32,
+                                  device=q.device)
+        # q is laid out contiguous at the call: (batch, head) strides.
+        self.strides = (ctypes.c_int64 * 5)(H * D, D, *k_pages.stride()[:3])
+        self.ints = (_DTYPES[q.dtype], B, H, hkv, D, maxp,
+                     ps.bit_length() - 1, chunk, n_split)
+
+
+def _check_paged(q, k_pages, v_pages, page_tables, seq_lens):
+    """Raise on what K5 does not take."""
+    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"q {tuple(q.shape)} / k_pages "
+                         f"{tuple(k_pages.shape)} / v_pages "
+                         f"{tuple(v_pages.shape)} are not [B, H, D] and "
+                         f"[P+1, H_kv, page, D]")
+    B, H, D = q.shape
+    _, hkv, ps, dk = k_pages.shape
+    if dk != D or H % hkv or page_tables.dim() != 2 \
+            or page_tables.shape[0] != B or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"q {tuple(q.shape)}, pages {tuple(k_pages.shape)}"
+                         f", page_tables {tuple(page_tables.shape)}, seq_lens"
+                         f" {tuple(seq_lens.shape)} do not agree")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged decode attention takes float32 or bfloat16 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if D not in _HEAD_DIMS[q.dtype] or H // hkv not in _PAGED_REPS \
+            or ps > _PAGED_MAX_PAGE or ps & (ps - 1):
+        raise ValueError(f"K5 takes head_dim {_HEAD_DIMS[q.dtype]}, query "
+                         f"groups {_PAGED_REPS} and a power-of-two page up "
+                         f"to {_PAGED_MAX_PAGE}; got head_dim {D}, group "
+                         f"{H // hkv}, page {ps}")
+    for name, t in (("page_tables", page_tables), ("seq_lens", seq_lens)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+    if any(t.device != q.device
+           for t in (k_pages, v_pages, page_tables, seq_lens)):
+        raise ValueError("paged decode attention tensors must be on one "
+                         "device")
+    vec = 16 // q.element_size()
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError(f"{name} needs a contiguous last dim and "
+                             f"16-byte aligned rows, got strides "
+                             f"{t.stride()}")
+    if k_pages.stride() != v_pages.stride():
+        raise ValueError(f"k_pages and v_pages need one layout, got strides "
+                         f"{k_pages.stride()} and {v_pages.stride()}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_tables: torch.Tensor,
+                           seq_lens: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over a paged KV cache: ``[B, H, D]`` in q's dtype.
+
+    q [B, H, D] (after rotary), k_pages / v_pages [P+1, H_kv, page, D] (one
+    layer's pools), page_tables [B, MAXP] and seq_lens [B] int: slot b
+    attends positions ``0..seq_lens[b]``, position j at row ``j % page`` of
+    page ``page_tables[b, j // page]``; kv head = h // (H / H_kv).  Scores
+    ``q.k * scale`` (default head_dim^-0.5) and softmax in fp32, P.V summed
+    in fp32 (K5 carries bf16 P as hi + lo, about 16 bits).  CUDA
+    tensors launch kernel K5 (``csrc/paged_decode.cu``: head_dim 32, 64 or
+    128 in fp32 or bf16, H / H_kv of 1, 2, 4 or 8, a power-of-two page up
+    to 64), which reads only the live pages through the table and no
+    length on the host; anything else raises.  CPU tensors take
+    ``paged_decode_attention_ref``."""
+    if not q.is_cuda:
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_tables,
+                                          seq_lens, scale=scale)
+    key = (q.shape, q.dtype, q.device, k_pages.shape, k_pages.stride(),
+           k_pages.dtype, k_pages.device, v_pages.shape, v_pages.stride(),
+           v_pages.dtype, v_pages.device, page_tables.shape, page_tables.dtype,
+           page_tables.device, seq_lens.shape, seq_lens.dtype,
+           seq_lens.device)
+    plan = _plans.get(key)
+    if plan is None:
+        _check_paged(q, k_pages, v_pages, page_tables, seq_lens)
+        plan = _plans[key] = _Plan(q, k_pages, page_tables)
+    q = q.contiguous()
+    if (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError("q, k_pages and v_pages need 16-byte aligned rows")
+    tables = page_tables.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    lib = plan.lib
+    code = plan.fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                   tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                   plan.part.data_ptr(), plan.counts.data_ptr(), *plan.ints,
+                   ctypes.addressof(plan.strides), float(scale),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "paged_decode")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -77,6 +77,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import _build
 from ..device import DeviceLike, resolve_device
 from ..devtools import jitguard
 from ..models.llama import Lora, _normal_, lora_init
@@ -92,6 +93,8 @@ from .prefix_cache import RadixPrefixCache
 #: ``"<pid>.<seq>"`` so records of several engines in one process (tests,
 #: harnesses) stay apart.
 _ENGINE_SEQ = itertools.count()
+#: The kernels the paged programs launch on the card.
+SERVE_KERNELS = ("flash_fwd", "rms_norm", "paged_decode")
 
 
 class EngineOverloadedError(Exception):
@@ -254,6 +257,10 @@ class InferenceEngine:
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, the engine "
                              f"runs on {self.device}")
+        if self.device.type == "cuda":
+            # The paged programs' kernels (K1, K4, K5), one nvcc each, all
+            # at once on a checkout's first run; later runs load them.
+            _build.build(SERVE_KERNELS)
         # A fresh engine means fresh geometry: re-registering stands the
         # paged programs' armed baselines down (recompile sentinel) until
         # this engine's own warmup() re-arms: an un-warmed engine's first
@@ -1112,10 +1119,14 @@ class InferenceEngine:
             busy = int(self._active.sum())
             span["occupancy"] = busy
             # Positions attended (each busy slot's cache and the new
-            # token) against those the page-table gather reads.
+            # token) against the pages K5 touches, in positions: every
+            # slot's pages up to its length, whole, and one scratch page
+            # an idle slot.  K5 reads only the attended rows of a busy
+            # slot's last page (the rest it zero-fills) and one row of an
+            # idle slot's page, so this counts page-granular positions.
+            ps = self.config.page_size
             span["kv_live"] = int(self._seq_lens[self._active].sum()) + busy
-            span["kv_read"] = (self.config.batch_slots * self.maxp
-                               * self.config.page_size)
+            span["kv_read"] = int(((self._seq_lens + ps) // ps).sum()) * ps
             span["launch"] = tracing.now()
         (self._d_tokens, self._d_seq_lens, self._d_key,
          self.pools) = paged_decode_step(
@@ -1252,7 +1263,8 @@ def _kernel_launches() -> Dict[str, int]:
             "flash_bwd_dq": attention.flash_attention_bwd_dq.launches,
             "flash_bwd_dkv": attention.flash_attention_bwd_dkv.launches,
             "rms_norm": norms.rms_norm_cuda.launches,
-            "rms_norm_bwd": norms.rms_norm_bwd.launches}
+            "rms_norm_bwd": norms.rms_norm_bwd.launches,
+            "paged_decode": attention.paged_decode_attention.launches}
 
 
 class LLMServer:

@@ -134,17 +134,21 @@ def test_step_stamps_are_ordered(engine):
 def test_kv_counters_follow_the_slots(engine):
     """Three prompts admitted together, four tokens each (three steps):
     each decode step attends every busy slot's cache and its new token,
-    and the gather reads every slot's whole page table."""
+    and K5 reads every slot's pages up to its length, whole (the idle
+    slot one scratch page)."""
     _, _, steps, _, _ = _serve(engine, PROMPTS, 4, traced=True)
     assert len(steps) == 3
     lens = [len(p) for p in PROMPTS]
-    read = (GEOMETRY["batch_slots"] * engine.config.pages_per_seq
-            * GEOMETRY["page_size"])
+    ps = GEOMETRY["page_size"]
     for i, s in enumerate(steps):
         a = s["attrs"]
         assert a["occupancy"] == 3
         assert a["kv_live"] == sum(n + 1 + i for n in lens)
-        assert a["kv_read"] == read == 4 * 6 * 8
+        read = sum(-(-(n + 1 + i) // ps) * ps for n in lens) + ps
+        assert a["kv_read"] == read
+    # Lengths 3, 10, 17 at the first step: pages of 8 rows, 1 + 2 + 3 of
+    # them, and one for the idle slot.
+    assert steps[0]["attrs"]["kv_read"] == (1 + 2 + 3 + 1) * 8
 
 
 def test_step_spans_stay_out_of_request_traces(engine):
