@@ -27,7 +27,9 @@ class Run:
     """What a per-layer reader reads.  ``ops``: the traced window's device
     operations as (name, start, end) wall-clock seconds, ``t0``/``t1`` the
     window; ``spans`` and ``steps`` the program's request spans and engine
-    step records."""
+    step records; ``gaps`` the clients' inter-token gaps (seconds) whose
+    later token arrived in the window; ``family`` the configuration's
+    family file (its attention shapes and FLOP counts)."""
 
     kind: str
     config: Dict[str, Any]
@@ -37,6 +39,8 @@ class Run:
     t1: float
     spans: List[Dict[str, Any]]
     steps: List[Dict[str, Any]]
+    gaps: List[float] = dataclasses.field(default_factory=list)
+    family: Any = None
     yardstick: Any = yardstick
     trace: Any = tr
 
@@ -61,7 +65,8 @@ def layer_metrics(cell: spec.Cell, out: Dict[str, Any],
     run = Run(kind=li["kind"], config=cell.config, mix=cell.mix,
               ops=trace.ops if trace else [],
               t0=trace.t0 if trace else 0.0, t1=trace.t1 if trace else 0.0,
-              spans=li.get("spans", []), steps=li.get("steps", []))
+              spans=li.get("spans", []), steps=li.get("steps", []),
+              gaps=li.get("gaps", []), family=cell.family)
     res = {}
     for m in cell.per_layer:
         value = spec.layer_reader(m["name"], root)(run)

@@ -16,15 +16,19 @@ End-to-end metrics, from the clients' clock:
 - ``ttft_p90_ms``: 90th percentile (nearest rank) over every request due
   in the window of its first token's arrival minus the time it was due
   (open loop) or sent (closed loop); a failed request counts as missing.
-- ``itl_p95_ms``: 95th percentile of every gap between consecutive
-  tokens of one request whose later token arrived in the window.
 - ``output_tokens_per_s``: tokens that reached a client in the window,
   over the window.
 
+The clients' inter-token gaps (every gap between consecutive tokens of
+one request whose later token arrived in the window) go to the per-layer
+readers (``itl_p95_ms.serve``) and, as their 50th and 95th percentiles, to
+the notes.
+
 ``correct``: a sample of the finished requests, drawn from the seed with
-the longest among them, goes through the fp32 reference: each served
-token's reference logit must lie within the limit of the reference's best
-at its position (the widest such gap is compared).  Greedy traffic only.
+the longest among them, goes through the fp32 reference of the cell's
+model family (``reference/<family>.py``): each served token's reference
+logit must lie within the limit of the reference's best at its position
+(the widest such gap is compared).  Greedy traffic only.
 With ``--control`` the fp8 control is put in the program's place: at each
 position of the same prompts and served tokens, the token it puts first
 is judged in the same way, and its gap is the ``logit_gap`` that the
@@ -45,7 +49,7 @@ import torch
 from bk import traffic
 from bk.program import build_model, port_config
 from bk.trace import DeviceTrace
-from reference import model as ref
+from reference.model import FP8, no_tf32
 from reference.weights import global_weights, group_seed, layer_weights
 
 
@@ -188,7 +192,7 @@ def _sample(done: List[Client], mix: Dict, seed: int) -> List[Client]:
     return out
 
 
-def check(config: Dict, seed: int, sample: List[Client], device,
+def check(family, config: Dict, seed: int, sample: List[Client], device,
           control: bool = False) -> Dict[str, float]:
     """The widest gap by which a served token's reference logit lies below
     the reference's best at its position; with ``control``, that of the
@@ -203,15 +207,16 @@ def check(config: Dict, seed: int, sample: List[Client], device,
         seqs.append(torch.as_tensor(toks, device=device))
         rows.append(torch.arange(n - 1, n - 1 + len(c.tokens),
                                  device=device))
-    glob = {k: v.float() for k, v in global_weights(config, seed,
+    glob = {k: v.float() for k, v in global_weights(family, config, seed,
                                                     device).items()}
 
     def layer_w(i):
-        return {k: v.float() for k, v in layer_weights(config, seed, i,
-                                                       device).items()}
+        return {k: v.float() for k, v in layer_weights(
+            family, config, seed, i, device).items()}
 
-    with ref.no_tf32():
-        logits = ref.logits_at(port, layer_w, glob, seqs, rows)
+    logits_at = family.reference.logits_at
+    with no_tf32():
+        logits = logits_at(port, layer_w, glob, seqs, rows)
         out = {"logit_gap": 0.0, "served_tokens": 0}
         for c, lg in zip(sample, logits):
             served = torch.as_tensor(c.tokens, device=device).long()
@@ -219,8 +224,7 @@ def check(config: Dict, seed: int, sample: List[Client], device,
             out["logit_gap"] = max(out["logit_gap"], float(gap.max()))
             out["served_tokens"] += len(c.tokens)
         if control:
-            low = ref.logits_at(port, layer_w, glob, seqs, rows,
-                                ref.FP8())
+            low = logits_at(port, layer_w, glob, seqs, rows, FP8())
             worst = 0.0
             for lg, lw in zip(logits, low):
                 pick = lw.argmax(-1)
@@ -253,10 +257,10 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
     from ray_tpu_torch.util import steprec, tracing
 
-    mix, config = cell.mix, cell.config
-    cfg = port_config(config)
+    mix, config, family = cell.mix, cell.config, cell.family
+    cfg = port_config(family, config)
     phases = {"imports_s": time.perf_counter() - t_start}
-    params = build_model(config, seed, device)
+    params = build_model(family, config, seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     phases["weights_s"] = time.perf_counter() - t_start
@@ -293,9 +297,13 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     if trace is not None:
         trace.stop(window=(ws + wall0, we + wall0))
     steps = steprec.drain_buffered()
-    # Every request due in the window gets its first token, or fails.
+    # Every request due in the window gets its first token, or fails.  The
+    # wait runs from the window's close or, on a traced run, from the end
+    # of the profiler's stop, which can outlast the wait and holds the
+    # engine back while it runs.
     due = [c for c in list(sent) if ws <= c.due < we]
-    deadline = we + float(mix["first_token_wait_s"])
+    deadline = (max(we, time.perf_counter())
+                + float(mix["first_token_wait_s"]))
     while time.perf_counter() < deadline and any(
             not c.times and c.error is None
             and (c.thread is None or c.thread.is_alive()) for c in due):
@@ -326,7 +334,6 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     failed = sum(1 for c in due if not c.times)
     metrics = {
         "ttft_p90_ms": nearest_rank(ttft, 90) * 1e3,
-        "itl_p95_ms": nearest_rank(gaps, 95) * 1e3,
         "output_tokens_per_s": tokens_in / seconds,
     }
     done = [c for c in sent if c.done]
@@ -336,7 +343,8 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    readings = check(config, seed, sample, device, control) if sample else {}
+    readings = (check(family, config, seed, sample, device, control)
+                if sample else {})
     return {
         "setup_s": setup_s,
         "metrics": metrics,
@@ -345,13 +353,15 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
         "readings": readings,
         "memory_peak_bytes": peak,
         "trace": trace,
-        "layer_input": {"kind": "serve", "spans": spans, "steps": steps},
+        "layer_input": {"kind": "serve", "spans": spans, "steps": steps,
+                        "gaps": gaps},
         "notes": {"requests_due": len(due), "sent": len(sent),
                   "finished": len(done),
                   "send_late_max_s": max([c.sent - c.due for c in due],
                                          default=0.0),
                   "ttft_p50_ms": nearest_rank(ttft, 50) * 1e3,
                   "itl_p50_ms": nearest_rank(gaps, 50) * 1e3,
+                  "itl_p95_ms": nearest_rank(gaps, 95) * 1e3,
                   "sample_requests": len(sample), "lead_s": lead,
                   "failed_errors": [c.error for c in due if not c.times][:5],
                   "setup_phases": phases,

@@ -12,6 +12,7 @@ by the operation that ends it.
 from __future__ import annotations
 
 import collections
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -90,8 +91,12 @@ def busy_s(ops: Sequence[Op], t0: float, t1: float) -> float:
     return sum(e - s for s, e, _ in merged(ops, t0, t1))
 
 
+@functools.lru_cache(maxsize=4096)
 def short(name: str, width: int = 96) -> str:
-    """A kernel's name without its return type and its argument list."""
+    """A kernel's name without its return type and its argument list
+    (cached: a traced window holds a few hundred names over a million
+    operations, and a templated name's argument list runs to hundreds of
+    characters)."""
     name = name[5:] if name.startswith("void ") else name
     if name.endswith(")"):
         depth = 0

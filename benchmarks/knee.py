@@ -39,8 +39,9 @@ def main() -> int:
     cell = spec.resolve(args.workload)
     mix, config = dict(cell.mix), cell.config
     dev = torch.device("cuda", 0)
-    engine = InferenceEngine(port_config(config),
-                             build_model(config, args.seed, dev),
+    engine = InferenceEngine(port_config(cell.family, config),
+                             build_model(cell.family, config, args.seed,
+                                         dev),
                              EngineConfig(**mix["engine"]), device=dev)
     serve.warm(engine, mix)
     for rate in [float(r) for r in args.rates.split(",")]:

@@ -1,19 +1,21 @@
 """Prefill attention's share of its roofline (%): for every prefill in the
 traced window whose ``engine:prefill`` span holds exactly one attention
 forward (a ``flash_fwd`` kernel) a layer, the least time of those calls
-at their input shapes (the bucket the prompt was padded to, one sequence,
-causal) over their device time.  Prefills cut by the window's edges are
-left out, their kernels with them."""
+at their input shapes (each layer's heads, head size and window from the
+configuration's family, ``attention_shapes``; the bucket the prompt was
+padded to, one sequence, causal) over their device time.  Prefills cut by
+the window's edges are left out, their kernels with them."""
+
+import collections
 
 KERNEL = "flash_fwd"
 
 
 def read(run):
     ys = run.yardstick
-    port = run.config["port"]
-    H, Hkv = port["n_heads"], port["n_kv_heads"]
-    D = port["d_model"] // H
-    L = port["n_layers"]
+    shapes = collections.Counter(run.family.attention_shapes(
+        run.config["port"]))
+    L = sum(shapes.values())
     calls = run.trace.named(run.ops, KERNEL)
     least = dev = 0.0
     for s in run.spans:
@@ -24,6 +26,8 @@ def read(run):
         if len(inside) != L:
             continue
         bucket = s["attrs"]["bucket"]
-        least += L * ys.min_time(*ys.attention_fwd(1, H, Hkv, bucket, D))
+        least += sum(n * ys.min_time(*ys.attention_fwd(
+            1, H, Hkv, bucket, D, window=w))
+            for (H, Hkv, D, w), n in shapes.items())
         dev += sum(e - b for _, b, e in inside)
     return least / dev * 100 if dev > 0 else None

@@ -2,12 +2,13 @@
 inputs the benchmark hands to the program and, made again from the same
 seed, to the reference.
 
-Each group (the embedding, the output head, one layer's leaves) is one
-``torch.randn`` call from its own generator, seeded from (seed, group),
-so the reference can make one layer again without the others.  A leaf is
-a slice of its group's draw times its scale; norms are ones.  The
-distributions are the port's ``llama_init`` ones: embedding N(0, 1),
-projections N(0, d^-1/2), down projections N(0, d_ff^-1/2).
+Each group (the globals, one layer's leaves) is one ``torch.randn`` call
+from its own generator, seeded from (seed, group), so the reference can
+make one layer again without the others.  A leaf is a slice of its
+group's draw times its scale; norms are ones.  The leaves, their shapes
+and their scales are the model family's (``families/<family>.py``:
+``global_leaves(port)``, ``layer_leaves(port, i)``), passed in as
+``family``.
 
 Names are the port's parameter names (``layers.3.attn.wq``), so the
 harness fills the program's modules by name.  Plain torch: nothing of the
@@ -17,7 +18,7 @@ program is imported here.
 from __future__ import annotations
 
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +26,7 @@ import torch
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: (name, shape, std or None for ones)
-Leaf = Tuple[str, Tuple[int, ...], float]
+Leaf = Tuple[str, Tuple[int, ...], Optional[float]]
 
 
 def group_seed(seed: int, *keys) -> int:
@@ -41,29 +42,6 @@ def group_seed(seed: int, *keys) -> int:
 def generator(seed: int, device, *keys) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(
         group_seed(seed, *keys))
-
-
-def layer_leaves(port: Dict[str, int]) -> List[Leaf]:
-    """One dense layer's leaves, relative names, in draw order."""
-    d, f = port["d_model"], port["d_ff"]
-    kv = port["n_kv_heads"] * (d // port["n_heads"])
-    sd, sf = d ** -0.5, f ** -0.5
-    return [("attn_norm", (d,), None),
-            ("attn.wq", (d, d), sd),
-            ("attn.wk", (d, kv), sd),
-            ("attn.wv", (d, kv), sd),
-            ("attn.wo", (d, d), sd),
-            ("mlp_norm", (d,), None),
-            ("mlp.w1", (d, f), sd),
-            ("mlp.w3", (d, f), sd),
-            ("mlp.w2", (f, d), sf)]
-
-
-def global_leaves(port: Dict[str, int]) -> List[Leaf]:
-    d, v = port["d_model"], port["vocab_size"]
-    return [("embed", (v, d), 1.0),
-            ("final_norm", (d,), None),
-            ("lm_head", (d, v), d ** -0.5)]
 
 
 def _draw(leaves: List[Leaf], seed: int, device, dtype: torch.dtype,
@@ -85,15 +63,16 @@ def _draw(leaves: List[Leaf], seed: int, device, dtype: torch.dtype,
     return out
 
 
-def layer_weights(config: Dict, seed: int, layer: int, device
+def layer_weights(family, config: Dict, seed: int, layer: int, device
                   ) -> Dict[str, torch.Tensor]:
     """Layer ``layer``'s leaves as served."""
-    return _draw(layer_leaves(config["port"]), seed,
+    return _draw(family.layer_leaves(config["port"], layer), seed,
                  device, DTYPES[config["dtype"]], ("layer", layer))
 
 
-def global_weights(config: Dict, seed: int, device
+def global_weights(family, config: Dict, seed: int, device
                    ) -> Dict[str, torch.Tensor]:
-    """The embedding, the final norm and the output head."""
-    return _draw(global_leaves(config["port"]), seed, device,
+    """The globals: for the dense family the embedding, the final norm and
+    the output head."""
+    return _draw(family.global_leaves(config["port"]), seed, device,
                  DTYPES[config["dtype"]], ("global",))

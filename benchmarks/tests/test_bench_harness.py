@@ -55,19 +55,13 @@ def test_cell_resolves(cell):
 @pytest.mark.parametrize("config", SPEC["configs"],
                          ids=lambda c: c["name"])
 def test_config_files(config):
+    """The file matches its entry, and its family's ``check_config``
+    finds its ``port`` keys equal to the published ``config``."""
     body = json.loads((ROOT / config["file"]).read_text())
     assert body["name"] == config["name"]
     assert body["source"] == config["source"]
     assert sorted(body["reduced"]) == sorted(config["reduced"])
-    port, hf = body["port"], body["config"]
-    assert port["d_model"] == hf["hidden_size"]
-    assert port["d_ff"] == hf["intermediate_size"]
-    assert port["n_layers"] == hf["num_hidden_layers"]
-    assert port["n_heads"] == hf["num_attention_heads"]
-    assert port["n_kv_heads"] == hf["num_key_value_heads"]
-    assert port["vocab_size"] == hf["vocab_size"]
-    assert port["rope_theta"] == hf["rope_theta"]
-    assert port["norm_eps"] == hf["rms_norm_eps"]
+    spec.family(body["family"]).check_config(body)
 
 
 def test_a_new_mix_is_a_file(tiny_root):
@@ -87,11 +81,19 @@ def test_yardstick_hand_counts():
     # A short call is bound by its bytes.
     f, b = ys.attention_fwd(1, 32, 8, 16, 128)
     assert ys.min_time(f, b) == b / 3.35e12
+    # A sliding window of 1024 over 4096 causal positions: the band of
+    # that width under the diagonal.
+    f, _ = ys.attention_fwd(1, 32, 4, 4096, 128, window=1024)
+    assert f == 2 * 2 * 32 * 128 * (4096 * 4096 / 2 - 3072 * 3072 / 2)
+    assert ys.attention_fwd(1, 32, 4, 1024, 128, window=1024) == \
+        ys.attention_fwd(1, 32, 4, 1024, 128)
     mistral = json.loads((BENCH / "configs" / "mistral7b.json").read_text())
+    dense = spec.family(mistral["family"])
     # Mistral-7B-v0.3's published count.
-    assert ys.param_count(mistral["port"]) == 7_248_023_552
-    assert ys.prefill_flop(mistral["port"], 100) == \
+    assert dense.param_count(mistral["port"]) == 7_248_023_552
+    assert dense.prefill_flop(mistral["port"], 100) == \
         2 * 7_248_023_552 * 100 + 2 * 32 * 100 * 100 * 4096
+    assert dense.attention_shapes(mistral["port"]) == [(32, 8, 128, None)] * 32
 
 
 def test_traffic_repeats_for_a_seed():
@@ -144,9 +146,10 @@ def test_weights_repeat():
     cfg = json.loads((BENCH / "configs" / "mistral7b.json").read_text())
     cfg = dict(cfg, port=dict(cfg["port"], d_model=64, n_heads=4,
                               n_kv_heads=2, d_ff=96, vocab_size=128))
-    a = weights.layer_weights(cfg, 2**31 + 9, 3, "cpu")
-    b = weights.layer_weights(cfg, 2**31 + 9, 3, "cpu")
-    c = weights.layer_weights(cfg, 2**31 + 9, 4, "cpu")
+    fam = spec.family(cfg["family"])
+    a = weights.layer_weights(fam, cfg, 2**31 + 9, 3, "cpu")
+    b = weights.layer_weights(fam, cfg, 2**31 + 9, 3, "cpu")
+    c = weights.layer_weights(fam, cfg, 2**31 + 9, 4, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["attn.wq"], c["attn.wq"])
     assert a["attn.wq"].dtype == torch.bfloat16
@@ -192,11 +195,15 @@ def test_no_jax_imports(path):
     assert _forbidden(BENCH / path, banned) == []
 
 
-def test_program_families_are_the_port():
-    from bk.program import FAMILIES
-
-    assert all(mod.split(".")[0] == "ray_tpu_torch"
-               for mod, *_ in FAMILIES.values())
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in (BENCH / "families").glob("*.py")))
+def test_program_families_are_the_port(name):
+    """Each family file names a module of the port, and imports none of
+    it itself (the harness imports it), so the reference never does."""
+    module, *classes = spec.family(name).PROGRAM
+    assert module.split(".")[0] == "ray_tpu_torch" and len(classes) == 2
+    assert _forbidden(BENCH / "families" / f"{name}.py",
+                      ["ray_tpu_torch"]) == []
 
 
 def test_run_refuses_without_a_card(tmp_path):
@@ -283,6 +290,57 @@ def test_a_stream_starting_late_reads_as_pending(monkeypatch):
     sender.join()
     c.thread.join()
     assert pending and c.tokens == [7] and c.done
+
+
+def test_the_first_token_wait_outlasts_the_trace_stop(tiny_root, tmp_path,
+                                                      monkeypatch):
+    """A profiler's stop that holds the engine back for longer than the
+    mix's ``first_token_wait_s``: the requests due in the window's last
+    0.3 s are admitted only once it ends, and still get their first
+    tokens, since the wait runs from the stop's end."""
+    import shutil
+    import threading
+
+    from bk import serve
+    from ray_tpu_torch.serve import engine
+
+    root = tmp_path / "root"
+    shutil.copytree(tiny_root, root)
+    mix = root / "benchmarks" / "traffic" / "tinychat.json"
+    mix.write_text(json.dumps(dict(json.loads(mix.read_text()),
+                                   first_token_wait_s=6)))
+    cell = spec.resolve("t_chat", root)
+    seconds, held = 2.0, threading.Event()
+    close = {}
+
+    def gated(real):
+        def call(*a, **k):
+            if time.perf_counter() > close.get("at", math.inf):
+                held.wait()
+            return real(*a, **k)
+        return call
+
+    for name in ("paged_prefill", "paged_decode_step"):
+        monkeypatch.setattr(engine, name, gated(getattr(engine, name)))
+    start, stop = serve.DeviceTrace.start, serve.DeviceTrace.stop
+
+    def start_(self):
+        close["at"] = time.perf_counter() + cell.mix["lead_s"] \
+            + seconds - 0.3
+        start(self)
+
+    def stop_(self, window=None):
+        time.sleep(7.0)
+        stop(self, window=window)
+        held.set()
+
+    monkeypatch.setattr(serve.DeviceTrace, "start", start_)
+    monkeypatch.setattr(serve.DeviceTrace, "stop", stop_)
+    res, notes = cli.execute(cell, 2**31 + 91, seconds, True,
+                             torch.device("cpu"), time.perf_counter(),
+                             root=root)
+    assert held.is_set()
+    assert res["failed"] == 0 and res["correct"], (res, notes)
 
 
 @pytest.mark.card

@@ -85,6 +85,15 @@ def test_reader_hand_answers(name, want):
     assert _read(name, _run()) == pytest.approx(want, abs=1e-9)
 
 
+def test_itl_tail_reader_takes_the_nearest_rank():
+    """The clients' gaps' 95th percentile by nearest rank: of 40 gaps,
+    the 38th smallest; a run without gaps reads nothing."""
+    run = _run()
+    run.gaps = [i / 1e3 for i in range(40, 0, -1)]
+    assert _read("itl_p95_ms.serve", run) == pytest.approx(38.0)
+    assert _read("itl_p95_ms.serve", _run()) is None
+
+
 def test_idle_split_adds_up_to_the_window():
     """The idle inside each step's launch and readback waits, between
     steps, and before the first launch and after the last readback, is
